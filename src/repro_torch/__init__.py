@@ -1,0 +1,16 @@
+"""PyTorch + CUDA port of the AMM reproduction, for one NVIDIA Hopper
+card.
+
+It mirrors ``src/repro/`` (the JAX reference) module by module.  This
+package holds the serving-memory path: the planner scores each LM
+serving stream with the paper's locality law (``memory.planner``), the
+embedding gather runs through the hand-written H-NTX-Rd XOR-banked
+gather (``kernels.amm_gather``) and the KV decode read through the
+banked flash-decode kernel (``kernels.banked_kv_decode``).  Kernel
+sources live in ``csrc/`` and are built with nvcc on first use.
+
+Entry points run on the CUDA device unless the caller passes
+``device="cpu"``; a kernel wrapper given a CPU tensor takes the
+kernel's plain PyTorch version, and given a CUDA tensor launches the
+kernel or raises.
+"""

@@ -1,0 +1,10 @@
+"""dbrx-132b [moe] — 16 experts top-4, fine-grained (hf:databricks/dbrx-base)."""
+from repro_torch.configs.base import ArchConfig
+
+ARCH = ArchConfig(
+    name="dbrx-132b", family="moe",
+    n_layers=40, d_model=6144, n_heads=48, n_kv_heads=8,
+    d_ff=10752, vocab=100352, head_dim=128,
+    n_experts=16, top_k=4, act="silu", gated_mlp=True,
+    rope_theta=500000.0,
+)

@@ -1,0 +1,4 @@
+from repro_torch.kernels.ops import (amm_gather, kv_decode,
+                                     pack_amm_banks)
+
+__all__ = ["amm_gather", "kv_decode", "pack_amm_banks"]

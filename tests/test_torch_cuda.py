@@ -1,0 +1,145 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.
+
+Every test here needs a CUDA device and skips without one (decided in
+the ``cuda`` fixture, never at import).  The file imports torch and the
+port only, so it runs on a machine without JAX:
+
+    PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
+
+Tolerances: the gather is bit-exact (XOR of bit patterns); kv_decode
+sums in another order than the plain version, so f32 is held to 1e-5.
+In bf16 both sum in f32 and round the output once, so they may differ by
+one bf16 step of the output (at most 2**-7 of it) plus the f32 order
+difference: atol 1e-4, rtol 2**-7.  The JAX suite's 4e-2 is looser than
+most outputs at S 1024 and would not tell a broken kernel.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import amm_gather, kv_decode, pack_amm_banks
+from repro_torch.kernels.amm_gather import (amm_gather_u32,
+                                            amm_gather_u32_plain)
+from repro_torch.kernels.banked_kv_decode import (banked_kv_decode,
+                                                  banked_kv_decode_plain)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _gen(seed):
+    return torch.Generator(device="cuda").manual_seed(seed)
+
+
+@pytest.mark.parametrize("word", [torch.int32, torch.int16])
+@pytest.mark.parametrize("nb,rows,d,n", [
+    (1, 64, 8, 32), (2, 32, 13, 7), (3, 32, 64, 97), (5, 50, 8, 1),
+    (8, 128, 2048, 256), (4, 16, 3, 64),
+])
+def test_amm_gather_u32_inconsistent_parity(cuda, word, nb, rows, d, n):
+    """A parity plane that is not the XOR of the banks separates the
+    direct and reconstruction paths: the kernel must take each slot's
+    path exactly as the plain version does."""
+    g = _gen(nb * 1000 + d)
+    lo, hi = (-2**31, 2**31 - 1) if word == torch.int32 else (-2**15, 2**15)
+    banks = torch.randint(lo, hi, (nb, rows, d), generator=g, device=cuda,
+                          dtype=word)
+    parity = torch.randint(lo, hi, (rows, d), generator=g, device=cuda,
+                           dtype=word)
+    idx = torch.randint(0, nb * rows, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    got = amm_gather_u32(banks, parity, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(got, amm_gather_u32_plain(banks, parity, idx))
+
+
+def test_amm_gather_u32_unaligned_base(cuda):
+    """Base addresses 2 bytes past a 16-byte boundary force the 2-byte
+    word path."""
+    g = _gen(3)
+    nb, rows, d, n = 4, 32, 16, 50
+    flat = torch.randint(-2**15, 2**15, (nb * rows * d + 1,), generator=g,
+                         device=cuda, dtype=torch.int16)
+    banks = flat[1:].view(nb, rows, d)
+    pflat = torch.randint(-2**15, 2**15, (rows * d + 1,), generator=g,
+                          device=cuda, dtype=torch.int16)
+    parity = pflat[1:].view(rows, d)
+    idx = torch.randint(0, nb * rows, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    assert torch.equal(amm_gather_u32(banks, parity, idx),
+                       amm_gather_u32_plain(banks, parity, idx))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_amm_gather_table_matches_take(cuda, dtype):
+    g = _gen(4)
+    table = torch.randn((250, 24), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, 250, (63,), generator=g, device=cuda)
+    before = amm_gather_u32.launches
+    got = amm_gather(table, idx, n_banks=5)
+    assert amm_gather_u32.launches == before + 1
+    word = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.view(word), table[idx].view(word))
+
+
+@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5),
+                                             (torch.bfloat16, 1e-4, 2**-7)])
+@pytest.mark.parametrize("b,hq,hkv,s,d,nb", [
+    (2, 4, 2, 64, 16, 4), (1, 8, 8, 128, 32, 8), (3, 6, 2, 96, 8, 3),
+    (4, 8, 4, 64, 16, 1), (2, 16, 1, 300, 128, 3), (2, 4, 2, 40, 12, 5),
+    (2, 2, 1, 512, 256, 2), (3, 16, 8, 1024, 128, 8),
+])
+def test_kv_decode_kernel_matches_plain(cuda, dtype, atol, rtol, b, hq, hkv,
+                                        s, d, nb):
+    g = _gen(b * 100 + s + d)
+    q = torch.randn((b, hq, d), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, hkv, s, d), generator=g, device=cuda).to(dtype)
+    v = torch.randn((b, hkv, s, d), generator=g, device=cuda).to(dtype)
+    lens = torch.randint(1, s + 1, (b,), generator=g, device=cuda,
+                         dtype=torch.int32)
+    lens[0] = s
+    got = kv_decode(q, k, v, lens, n_banks=nb)
+    sb = s // nb
+    want = banked_kv_decode_plain(q, k.reshape(b, hkv, nb, sb, d),
+                                  v.reshape(b, hkv, nb, sb, d), lens)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+def test_kv_decode_ragged_empty_rows_and_poison(cuda):
+    b, hq, hkv, s, d, nb = 4, 4, 2, 64, 16, 4
+    g = _gen(11)
+    q = torch.randn((b, hq, d), generator=g, device=cuda)
+    k = torch.randn((b, hkv, s, d), generator=g, device=cuda)
+    v = torch.randn((b, hkv, s, d), generator=g, device=cuda)
+    lens = torch.tensor([0, 5, 33, 64], dtype=torch.int32, device=cuda)
+    got = kv_decode(q, k, v, lens, n_banks=nb)
+    want = banked_kv_decode_plain(q, k.reshape(b, hkv, nb, s // nb, d),
+                                  v.reshape(b, hkv, nb, s // nb, d), lens)
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    assert torch.all(got[0] == 0)
+    kp, vp = k.clone(), v.clone()
+    for i, n in enumerate(lens.tolist()):
+        kp[i, :, n:] = 1e4
+        vp[i, :, n:] = -1e4
+    got2 = kv_decode(q, kp, vp, lens, n_banks=nb)
+    assert (got2 - got).abs().max().item() <= 1e-6
+
+
+def test_kv_decode_rejects_wide_group(cuda):
+    q = torch.zeros((1, 32, 16), device=cuda)
+    kb = torch.zeros((1, 1, 1, 8, 16), device=cuda)
+    with pytest.raises(ValueError, match="query heads per kv head"):
+        banked_kv_decode(q, kb, kb, torch.ones(1, dtype=torch.int32,
+                                               device=cuda))
+
+
+def test_pack_amm_banks_parity_on_card(cuda):
+    g = _gen(5)
+    table = torch.randn((96, 8), generator=g, device=cuda)
+    banks, parity = pack_amm_banks(table, 3)
+    assert torch.equal(parity, banks[0] ^ banks[1] ^ banks[2])
