@@ -21,7 +21,20 @@ fails:
 4. the slice end to end: 4 decode steps, each an embedding lookup
    through ``banked_embedding_lookup``, an ``append`` and a
    ``decode_read``, held against the same steps on the plain versions;
-   both kernels' launch counts must rise in this run.
+   both kernels' launch counts must rise in this run;
+5. ``ssd_chunk`` at mamba2-130m's chunk (Bt 8, H 24, Q 256, P 64,
+   N 128, f32), an odd shape (Bt 2, H 3, Q 12, P 8, N 6) and bf16 x:
+   the kernel within atol 1e-4 + rtol 1e-5 of its plain version (y of
+   bf16 x within one bf16 step, rtol 2**-7, since both round it once);
+6. Mamba2 serving at full width (24 layers, bf16 compute, random
+   weights from seed 0): ``repro_torch.launch.serve.main`` with batch 8,
+   prompt 4096 and 16 greedy decode steps must launch the SSD kernel
+   24 x 16 = 384 times; then, with the same weights (layer weights
+   rounded through bf16), prefill-then-decode must equal ``forward``
+   over t+1 tokens within 2e-2 in bf16 (the reference's own limit) and
+   1e-3 in f32, and an f32 prefill on the card (kernel) must equal the
+   port's prefill on the CPU (plain versions) within 1e-3; last the
+   prefill and decode times and the prefill's device-time split.
 
 It then prints the ``kernels`` JSON line (kernel, plain, library and
 bound times), and last ``{"ok": true, "device": {...}}``.  It exits
@@ -39,6 +52,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
@@ -56,6 +70,21 @@ DECODE_STEPS = 4
 # pass a kernel whose error is as large as its outputs.
 BF16_ATOL = 1e-4
 BF16_RTOL = 2.0 ** -7
+SSM_ARCH = "mamba2-130m"
+SERVE_BATCH = 8
+SERVE_PROMPT = 4096           # 16 chunks of 256
+SERVE_GEN = 16
+# SSD chunk, kernel against plain: the reference's SSD tolerance (1e-4)
+# plus an f32 order term
+SSD_ATOL = 1e-4
+SSD_RTOL = 1e-5
+# prefill-then-decode against forward in bf16: tests/test_models.py's
+# limit
+E2E_TOL = 2e-2
+# the same in f32, and an f32 prefill on the card against the CPU: 24
+# layers of f32 sums taken in another order
+F32_MODEL_TOL = 1e-3
+F32_BATCH, F32_PROMPT = 2, 512
 
 
 def check(ok: bool, msg: str) -> None:
@@ -99,6 +128,47 @@ def bound_ms(n_bytes: float, n_flops: float = 0.0) -> "tuple[float, str]":
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_profile(fn) -> "tuple[dict[str, float], float]":
+    """Run ``fn`` once under ``torch.profiler``: device ms by kernel
+    name, and the host-clock ms of the run."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = e.self_cuda_time_total if us is None else us
+        by_kernel[e.key] = by_kernel.get(e.key, 0.0) + us / 1e3
+    return by_kernel, wall
+
+
+def print_profile(what: str, by_kernel: "dict[str, float]", wall: float,
+                  step_ms: float, top: int = 6) -> "tuple[float, float]":
+    """Print a run's kernel time, idle share and largest kernels; return
+    the SSD kernels' ms and all kernels' ms.  The idle share is 1 minus
+    the profiled kernel time over ``step_ms``, the same step's time
+    without the profiler, whose own cost would count as idle time."""
+    total = sum(by_kernel.values())
+    ssd = sum(ms for k, ms in by_kernel.items() if "ssd_" in k)
+    if total == 0:
+        print(f"{what}: the profiler recorded no device time")
+        return ssd, total
+    print(f"{what} (profiler, device): ssd_scan {ssd:.3f} ms of {total:.3f} "
+          f"ms kernel time ({ssd / total:.1%}), rest {total - ssd:.3f} ms; "
+          f"profiled wall {wall:.3f} ms, unprofiled step {step_ms:.3f} ms, "
+          f"device idle {1 - total / step_ms:.1%} of the unprofiled step")
+    for k, ms in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:top]:
+        print(f"  {ms:9.3f} ms  {k[:90]}")
+    return ssd, total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -116,6 +186,14 @@ def main() -> int:
     from repro_torch.memory import (BankedKVCache, banked_embedding_lookup,
                                     plan_memory)
     from repro_torch.memory.planner import embedding_stream
+    from repro_torch.kernels import ssd_chunk
+    from repro_torch.kernels.ssd_scan import (ssd_chunk_step,
+                                              ssd_chunk_step_plain)
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import (DTypePolicy, forward, init_model,
+                                    prefill, ssm_config)
+    from repro_torch.models.common import tree_map
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain versions in f32
     torch.backends.cudnn.allow_tf32 = False
@@ -315,6 +393,176 @@ def main() -> int:
     print("end to end step split (ms, device): " + ", ".join(
         f"{k} {v:.4f}" for k, v in split.items()))
 
+    del cache, kb, vb, q, table, banks, parity, pb, pp, outs
+    torch.cuda.empty_cache()
+
+    # ---- 5. ssd_chunk -----------------------------------------------
+    ssm_arch = get_arch(SSM_ARCH)
+    scfg = ssm_config(ssm_arch)
+    sb, sh, sq, sp, sn = (SERVE_BATCH, scfg.n_heads, scfg.chunk,
+                          scfg.head_dim, scfg.d_state)
+
+    def ssd_inputs(bt: int, h: int, q: int, p: int, n: int) -> tuple:
+        """dt in [1e-3, 1e-1], A = -linspace(1, 16, h) as the model's
+        A_log gives it, cum = cumsum(dt A); normal x, B, C and h_in."""
+        dt = 1e-3 + (1e-1 - 1e-3) * torch.rand((bt, h, q), generator=gen,
+                                                device=dev)
+        A = -torch.linspace(1.0, 16.0, h, device=dev)
+        cum = torch.cumsum(dt * A[None, :, None], dim=-1)
+        return (torch.randn((bt, h, q, p), generator=gen, device=dev), dt,
+                cum, torch.randn((bt, q, n), generator=gen, device=dev),
+                torch.randn((bt, q, n), generator=gen, device=dev),
+                torch.randn((bt, h, p, n), generator=gen, device=dev))
+
+    def hold_ssd(ins: tuple, what: str, y_rtol: float = SSD_RTOL) -> tuple:
+        y, h_out = ssd_chunk(*ins)
+        want_y, want_h = ssd_chunk_step_plain(*ins)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(y).all() and torch.isfinite(h_out).all()),
+              f"{what}: output not finite")
+        ey = hold_close(y, want_y, SSD_ATOL, y_rtol, f"{what} y")
+        eh = hold_close(h_out, want_h, SSD_ATOL, SSD_RTOL, f"{what} h_out")
+        print(f"ssd {what}: y max err {ey[0]:.3g} (max |y| {ey[1]:.3g}, "
+              f"{ey[2]:.3g} of the limit), h_out max err {eh[0]:.3g} (max "
+              f"|h| {eh[1]:.3g}, {eh[2]:.3g} of the limit)")
+        return y, max(ey[0], eh[0])
+
+    ssd_in = ssd_inputs(sb, sh, sq, sp, sn)
+    _, ssd_err = hold_ssd(ssd_in, f"Bt {sb} H {sh} Q {sq} P {sp} N {sn} f32")
+    hold_ssd(ssd_inputs(2, 3, 12, 8, 6), "odd Bt 2 H 3 Q 12 P 8 N 6 f32")
+    odd = ssd_inputs(2, 3, 12, 8, 6)
+    yb, _ = hold_ssd((odd[0].to(torch.bfloat16),) + odd[1:],
+                     "odd, bf16 x (y within one bf16 step)", BF16_RTOL)
+    check(torch.equal(yb, yb.to(torch.bfloat16).float()),
+          "y of bf16 x is not rounded through bf16")
+    ssd_ms = time_ms(lambda: ssd_chunk(*ssd_in))
+    ssd_plain = time_ms(lambda: ssd_chunk_step_plain(*ssd_in))
+    # causal count: the kernel skips j > i, whose terms are exactly 0
+    tri = sq * (sq + 1) / 2
+    ssd_flops = sb * (2 * tri * sn + sh * (2 * tri * sp + 4 * sq * sn * sp))
+    ssd_bytes = 4 * (2 * sb * sh * sq * sp + 2 * sb * sh * sp * sn
+                     + 2 * sb * sq * sn + 2 * sb * sh * sq)
+    ssd_bound, ssd_by = bound_ms(ssd_bytes, ssd_flops)
+    print(f"ssd Bt {sb} H {sh} Q {sq} P {sp} N {sn} f32: "
+          f"{ssd_flops / 1e9:.3f} GFLOP, {ssd_bytes / 1e6:.2f} MB; kernel "
+          f"{ssd_ms:.4f} ms, plain {ssd_plain:.4f} ms, bound "
+          f"{ssd_bound:.4f} ms ({ssd_by}); no single PyTorch call computes "
+          f"this function, so library_ms is null")
+    del ssd_in
+
+    # ---- 6. Mamba2 serving, end to end ------------------------------
+    amm_gather_u32.launches = 0
+    banked_kv_decode.launches = 0
+    ssd_chunk_step.launches = 0
+    torch.cuda.synchronize()
+    served = serve.main(["--arch", SSM_ARCH, "--preset", "full",
+                         "--batch", str(SERVE_BATCH),
+                         "--prompt-len", str(SERVE_PROMPT),
+                         "--gen", str(SERVE_GEN)])
+    torch.cuda.synchronize()
+    serve_launches = {"amm_gather": amm_gather_u32.launches,
+                      "banked_kv_decode": banked_kv_decode.launches,
+                      "ssd_scan": ssd_chunk_step.launches}
+    want_launches = ssm_arch.n_layers * (SERVE_PROMPT // scfg.chunk)
+    print(f"serve {SSM_ARCH} full: launches {serve_launches} (want "
+          f"{want_launches} ssd_scan), {served['tok_per_s']:.1f} tok/s")
+    check(serve_launches["ssd_scan"] == want_launches,
+          f"ssd_scan launched {serve_launches['ssd_scan']} times, not "
+          f"{want_launches}")
+    check(served["generated"].shape == (SERVE_BATCH, SERVE_GEN),
+          f"generated shape {served['generated'].shape}")
+
+    policy = DTypePolicy.standard()
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    # serve's weights, with the stacked layer weights rounded through
+    # bf16: the JAX forward casts every stacked leaf to the compute dtype
+    # (A_log, D, dt_bias and the norm scales included) where prefill and
+    # decode keep f32, so with unrounded weights the bf16 check below
+    # would measure that rounding, not the path
+    params = init_model(0, ssm_arch, policy, dev)
+    params["blocks"] = tree_map(lambda t: t.to(torch.bfloat16).float(),
+                                params["blocks"])
+    prompt_rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(prompt_rng.integers(
+        0, ssm_arch.vocab, (SERVE_BATCH, SERVE_PROMPT))).to(dev, torch.int32)
+    prefill_step = make_prefill_step(ssm_arch, policy,
+                                     SERVE_PROMPT + SERVE_GEN)
+    decode = make_decode_step(ssm_arch, policy)
+    prefill_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(logits).all()), "prefill logits not finite")
+    last = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+
+    def prefill_decode_vs_forward(pol: DTypePolicy, tol: float,
+                                  what: str) -> None:
+        """Decode token t+1 from the prefill's cache (the kernel's h_out
+        and the conv tail) and hold it against forward over t+1."""
+        _, c = prefill(params, ssm_arch, {"tokens": tokens},
+                       SERVE_PROMPT + 1, pol)
+        _, dec = make_decode_step(ssm_arch, pol)(params, c, last)[:2]
+        full, _ = forward(params, ssm_arch,
+                          {"tokens": torch.cat([tokens, last], dim=1)}, pol)
+        torch.cuda.synchronize()
+        err, scale, share = hold_close(
+            dec[:, 0], full[:, SERVE_PROMPT], tol, tol,
+            f"{what} prefill-then-decode vs forward")
+        print(f"{what} prefill-then-decode vs forward at t+1 = "
+              f"{SERVE_PROMPT + 1}, B {SERVE_BATCH}: max err {err:.3g} (max "
+              f"|logit| {scale:.3g}, {share:.3g} of the limit atol {tol:g} "
+              f"+ rtol {tol:g} * |logit|)")
+
+    prefill_decode_vs_forward(policy, E2E_TOL, "bf16")
+    prefill_decode_vs_forward(f32, F32_MODEL_TOL, "f32")
+    torch.cuda.empty_cache()
+    gen_ids = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(SERVE_GEN):
+        last, logits, cache = decode(params, cache, last)
+        gen_ids.append(last)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / SERVE_GEN
+    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    check(torch.cat(gen_ids, 1).shape == (SERVE_BATCH, SERVE_GEN),
+          "generated ids shape")
+
+    # the whole model in f32: card (kernel) against CPU (plain versions)
+    tok32 = tokens[:F32_BATCH, :F32_PROMPT]
+    lg_card, c_card = prefill(params, ssm_arch, {"tokens": tok32},
+                              F32_PROMPT, f32)
+    lg_cpu, c_cpu = prefill(tree_map(lambda t: t.cpu(), params), ssm_arch,
+                            {"tokens": tok32.cpu()}, F32_PROMPT, f32)
+    f32_errs = [hold_close(got.cpu(), want, F32_MODEL_TOL, F32_MODEL_TOL,
+                           f"f32 card vs cpu {what}")
+                for what, got, want in (
+                    ("logits", lg_card, lg_cpu),
+                    ("ssm_h", c_card["ssm_h"], c_cpu["ssm_h"]),
+                    ("ssm_conv", c_card["ssm_conv"], c_cpu["ssm_conv"]))]
+    print("f32 prefill B {} S {} card vs cpu: ".format(F32_BATCH, F32_PROMPT)
+          + ", ".join(f"{w} max err {e[0]:.3g} (max {e[1]:.3g}, {e[2]:.3g} "
+                      "of the limit)" for w, e in
+                      zip(("logits", "ssm_h", "ssm_conv"), f32_errs)))
+    del lg_card, c_card, lg_cpu, c_cpu
+
+    # where the prefill's and a decode step's device time go
+    prefill_med = statistics.median(prefill_ms)
+    print(f"serve {SSM_ARCH} B {SERVE_BATCH} S {SERVE_PROMPT}: prefill "
+          f"{prefill_med:.3f} ms (host clock, median of "
+          f"{', '.join(f'{t:.3f}' for t in prefill_ms)}), decode "
+          f"{decode_ms:.3f} ms a token step ({SERVE_GEN} steps)")
+    print_profile("prefill split", *device_profile(
+        lambda: prefill_step(params, {"tokens": tokens})), prefill_med)
+    print_profile("decode step split", *device_profile(
+        lambda: decode(params, cache, last)), decode_ms)
+    print(f"prefill split (events): {want_launches} x {ssd_ms:.4f} ms = "
+          f"{want_launches * ssd_ms:.3f} ms of ssd_scan, "
+          f"{prefill_med - want_launches * ssd_ms:.3f} ms the rest")
+
     kernels = [{
         "name": "amm_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/amm_gather.cu",
@@ -327,7 +575,13 @@ def main() -> int:
         "replaces": "src/repro/kernels/banked_kv_decode.py:74",
         "launches": launches["banked_kv_decode"], "max_abs_err": kv_err,
         "ms": kv_ms, "kernel_ms": kv_ms, "plain_ms": kv_plain, "bound_ms": kv_bound,
-        "bound_by": kv_by, "library_ms": kv_lib}]
+        "bound_by": kv_by, "library_ms": kv_lib}, {
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:58",
+        "launches": serve_launches["ssd_scan"], "max_abs_err": ssd_err,
+        "ms": ssd_ms, "kernel_ms": ssd_ms, "plain_ms": ssd_plain,
+        "bound_ms": ssd_bound, "bound_by": ssd_by, "library_ms": None}]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,11 @@ package holds the serving-memory path: the planner scores each LM
 serving stream with the paper's locality law (``memory.planner``), the
 embedding gather runs through the hand-written H-NTX-Rd XOR-banked
 gather (``kernels.amm_gather``) and the KV decode read through the
-banked flash-decode kernel (``kernels.banked_kv_decode``).  Kernel
-sources live in ``csrc/`` and are built with nvcc on first use.
+banked flash-decode kernel (``kernels.banked_kv_decode``).  It also
+serves Mamba2 (``launch.serve`` -> ``models.lm`` -> ``models.ssm``),
+whose chunked SSD scan runs every chunk through the hand-written chunk
+kernel (``kernels.ssd_scan``).  Kernel sources live in ``csrc/`` and
+are built with nvcc on first use.
 
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a kernel wrapper given a CPU tensor takes the

@@ -35,3 +35,13 @@ def banked_kv_cache_from_numpy(k: np.ndarray, v: np.ndarray,
                          length=tensor_from_numpy(
                              np.asarray(length, np.int32), device),
                          n_banks=int(n_banks))
+
+
+def params_from_numpy(tree: dict,
+                      device: "str | torch.device | None" = None) -> dict:
+    """A nested dict of numpy arrays (a JAX params pytree after
+    ``jax.tree.map(np.asarray, ...)``) as the port's params: the same
+    keys, stacked layers kept on their leading [L, ...] axis."""
+    return {k: params_from_numpy(v, device) if isinstance(v, dict)
+            else tensor_from_numpy(np.asarray(v), device)
+            for k, v in tree.items()}

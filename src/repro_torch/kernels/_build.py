@@ -28,7 +28,7 @@ import torch
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
-KERNELS = ("amm_gather", "banked_kv_decode")
+KERNELS = ("amm_gather", "banked_kv_decode", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels.amm_gather import amm_gather_u32
 from repro_torch.kernels.banked_kv_decode import banked_kv_decode
+from repro_torch.kernels.ssd_scan import ssd_chunk_step
 
 _WORD_FOR = {2: torch.int16, 4: torch.int32}
 
@@ -53,3 +54,13 @@ def kv_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kb = k.reshape(b, hkv, n_banks, s // n_banks, d)
     vb = v.reshape(b, hkv, n_banks, s // n_banks, d)
     return banked_kv_decode(q, kb, vb, lengths.to(torch.int32))
+
+
+def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+              B: torch.Tensor, C: torch.Tensor, h_in: torch.Tensor
+              ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """One SSD chunk step (see ssd_scan.py for the contract).
+    x: [Bt, H, Q, P]; dt/cum: [Bt, H, Q]; B/C: [Bt, Q, N];
+    h_in: [Bt, H, P, N] -> (y [Bt, H, Q, P], h_out [Bt, H, P, N]), f32."""
+    return ssd_chunk_step(*(t.contiguous() for t in (x, dt, cum, B, C,
+                                                      h_in)))

@@ -1,0 +1,106 @@
+"""Mamba2 SSD chunk step — one chunk of the state-space dual form.
+
+For a chunk of Q tokens, per (batch row, head):
+  inputs : x [Bt, H, Q, P], dt [Bt, H, Q], cum [Bt, H, Q] (cumulative
+           log-decay), B [Bt, Q, N], C [Bt, Q, N], h_in [Bt, H, P, N]
+  outputs: y [Bt, H, Q, P], h_out [Bt, H, P, N], both f32
+
+  L[i,j]  = exp(cum_i - cum_j)        for j <= i, else 0
+  y       = ((C B^T) * L) @ (dt * x)  +  (C * exp(cum)) @ h_in^T
+  h_out   = exp(cum_Q) h_in + (exp(cum_Q - cum) * dt * x)^T @ B
+
+Inputs are read as f32.  As in the JAX package, whose block body casts
+y to x's dtype and h_out to h_in's before they are stored as f32, y is
+rounded through x's dtype and h_out through h_in's wherever those are
+not f32.  ``ssd_chunk_step`` launches ``csrc/ssd_scan.cu`` on CUDA
+tensors and runs ``ssd_chunk_step_plain`` on CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+
+FLOAT_DTYPES = (torch.float32, torch.bfloat16)
+MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y (heads), .z (batch)
+
+
+def _round_through(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t if dtype == torch.float32 else t.to(dtype).float()
+
+
+def ssd_chunk_step_plain(x: torch.Tensor, dt: torch.Tensor,
+                         cum: torch.Tensor, B: torch.Tensor,
+                         C: torch.Tensor, h_in: torch.Tensor
+                         ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Plain PyTorch version: the per-head einsums of the Pallas block
+    body, in f32, with the same mask and output rounding."""
+    q = x.shape[2]
+    xf, dtf, cumf = x.float(), dt.float(), cum.float()
+    Bf, Cf, hf = B.float(), C.float(), h_in.float()
+    ii = torch.arange(q, device=x.device)
+    causal = ii[None, :] <= ii[:, None]                        # [i, j]
+    diff = torch.where(causal, cumf[..., :, None] - cumf[..., None, :],
+                       -1e30)
+    decay = torch.exp(diff)                                    # [b,h,i,j]
+    cb = torch.einsum("bin,bjn->bij", Cf, Bf)                  # [b,i,j]
+    scores = cb[:, None] * decay
+    y = torch.einsum("bhij,bhjp->bhip", scores, dtf[..., None] * xf)
+    y = y + torch.einsum("bhin,bhpn->bhip",
+                         Cf[:, None] * torch.exp(cumf)[..., None], hf)
+    tail = torch.exp(cumf[..., -1:] - cumf) * dtf              # [b,h,q]
+    h_out = torch.exp(cumf[..., -1])[..., None, None] * hf + torch.einsum(
+        "bhjp,bjn->bhpn", tail[..., None] * xf, Bf)
+    return _round_through(y, x.dtype), _round_through(h_out, h_in.dtype)
+
+
+@functools.cache
+def _launcher() -> tuple:
+    lib = _build.load("ssd_scan")
+    fn = lib.ssd_chunk_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
+        [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def ssd_chunk_step(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                   B: torch.Tensor, C: torch.Tensor, h_in: torch.Tensor
+                   ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """x: [Bt, H, Q, P]; dt/cum: [Bt, H, Q]; B/C: [Bt, Q, N];
+    h_in: [Bt, H, P, N] -> (y [Bt, H, Q, P], h_out [Bt, H, P, N]), f32.
+
+    A CUDA tensor launches the kernel (``ssd_chunk_step.launches`` counts
+    the launches); a CPU tensor takes the plain version."""
+    if _build.dispatch(x, dt, cum, B, C, h_in) == "cpu":
+        return ssd_chunk_step_plain(x, dt, cum, B, C, h_in)
+    bt, h, q, p = x.shape
+    n = B.shape[-1]
+    if q == 0:
+        raise ValueError("an SSD chunk needs at least one position")
+    if h > MAX_GRID_YZ or bt > MAX_GRID_YZ:
+        raise ValueError(f"the CUDA kernel serves up to {MAX_GRID_YZ} heads "
+                         f"and batch rows, got {h} and {bt}")
+    dev = x.device
+    _build.check_tensor("x", x, dev, FLOAT_DTYPES, (bt, h, q, p))
+    _build.check_tensor("dt", dt, dev, FLOAT_DTYPES, (bt, h, q))
+    _build.check_tensor("cum", cum, dev, FLOAT_DTYPES, (bt, h, q))
+    _build.check_tensor("B", B, dev, FLOAT_DTYPES, (bt, q, n))
+    _build.check_tensor("C", C, dev, FLOAT_DTYPES, (bt, q, n))
+    _build.check_tensor("h_in", h_in, dev, FLOAT_DTYPES, (bt, h, p, n))
+    ins = [t.float() for t in (x, dt, cum, B, C, h_in)]
+    y = torch.empty((bt, h, q, p), dtype=torch.float32, device=dev)
+    h_out = torch.empty((bt, h, p, n), dtype=torch.float32, device=dev)
+    lib, fn = _launcher()
+    with torch.cuda.device(dev):
+        code = fn(*(t.data_ptr() for t in ins), y.data_ptr(),
+                  h_out.data_ptr(), bt, h, q, p, n, _build.stream_ptr(x))
+    _build.check_status(lib, code, "ssd_chunk_step")
+    ssd_chunk_step.launches += 1
+    return _round_through(y, x.dtype), _round_through(h_out, h_in.dtype)
+
+
+ssd_chunk_step.launches = 0

@@ -12,16 +12,21 @@ sums in another order than the plain version, so f32 is held to 1e-5.
 In bf16 both sum in f32 and round the output once, so they may differ by
 one bf16 step of the output (at most 2**-7 of it) plus the f32 order
 difference: atol 1e-4, rtol 2**-7.  The JAX suite's 4e-2 is looser than
-most outputs at S 1024 and would not tell a broken kernel.
+most outputs at S 1024 and would not tell a broken kernel.  The SSD
+chunk sums in f32 in another order than the plain version: atol 1e-4
+(the reference's SSD tolerance) + rtol 1e-5; with bf16 x both round y
+once to bf16, so y may differ by one bf16 step (rtol 2**-7).
 """
 import pytest
 import torch
 
-from repro_torch.kernels import amm_gather, kv_decode, pack_amm_banks
+from repro_torch.kernels import (amm_gather, kv_decode, pack_amm_banks,
+                                 ssd_chunk)
 from repro_torch.kernels.amm_gather import (amm_gather_u32,
                                             amm_gather_u32_plain)
 from repro_torch.kernels.banked_kv_decode import (banked_kv_decode,
                                                   banked_kv_decode_plain)
+from repro_torch.kernels.ssd_scan import ssd_chunk_step, ssd_chunk_step_plain
 
 
 @pytest.fixture
@@ -143,3 +148,46 @@ def test_pack_amm_banks_parity_on_card(cuda):
     table = torch.randn((96, 8), generator=g, device=cuda)
     banks, parity = pack_amm_banks(table, 3)
     assert torch.equal(parity, banks[0] ^ banks[1] ^ banks[2])
+
+
+def _ssd_inputs(g, cuda, bt, h, q, p, n):
+    """dt in [1e-3, 1e-1], A = -linspace(1, 16, h) as the model's A_log
+    gives it, cum = cumsum(dt A); normal x, B, C and h_in."""
+    dt = 1e-3 + (1e-1 - 1e-3) * torch.rand((bt, h, q), generator=g,
+                                            device=cuda)
+    A = -torch.linspace(1.0, 16.0, h, device=cuda)
+    cum = torch.cumsum(dt * A[None, :, None], dim=-1)
+    x = torch.randn((bt, h, q, p), generator=g, device=cuda)
+    B = torch.randn((bt, q, n), generator=g, device=cuda)
+    C = torch.randn((bt, q, n), generator=g, device=cuda)
+    h_in = torch.randn((bt, h, p, n), generator=g, device=cuda)
+    return x, dt, cum, B, C, h_in
+
+
+@pytest.mark.parametrize("bt,h,q,p,n", [
+    (1, 2, 8, 4, 4), (2, 4, 16, 8, 8), (2, 3, 12, 8, 6), (2, 3, 12, 4, 6),
+    (1, 2, 64, 16, 32), (2, 5, 100, 70, 130), (1, 3, 65, 64, 33),
+    (8, 24, 256, 64, 128),          # mamba2-130m's chunk, as on the path
+])
+def test_ssd_chunk_kernel_matches_plain(cuda, bt, h, q, p, n):
+    g = _gen(bt * 1000 + q + n)
+    ins = _ssd_inputs(g, cuda, bt, h, q, p, n)
+    before = ssd_chunk_step.launches
+    y, h_out = ssd_chunk(*ins)
+    torch.cuda.synchronize()
+    assert ssd_chunk_step.launches == before + 1
+    want_y, want_h = ssd_chunk_step_plain(*ins)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(h_out, want_h, atol=1e-4, rtol=1e-5)
+
+
+def test_ssd_chunk_kernel_rounds_y_through_bf16_x(cuda):
+    g = _gen(77)
+    x, dt, cum, B, C, h_in = _ssd_inputs(g, cuda, 2, 3, 12, 8, 6)
+    xb = x.to(torch.bfloat16)
+    y, h_out = ssd_chunk_step(xb, dt, cum, B, C, h_in)
+    want_y, want_h = ssd_chunk_step_plain(xb, dt, cum, B, C, h_in)
+    assert y.dtype == h_out.dtype == torch.float32
+    assert torch.equal(y, y.to(torch.bfloat16).float())
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=2.0 ** -7)
+    torch.testing.assert_close(h_out, want_h, atol=1e-4, rtol=1e-5)

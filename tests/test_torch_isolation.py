@@ -66,7 +66,7 @@ def test_importing_the_port_loads_no_jax():
     assert int(out.stdout.strip()) >= 20     # every module was walked
 
 
-@pytest.mark.parametrize("sub", ["kernels", "memory"])
+@pytest.mark.parametrize("sub", ["kernels", "memory", "models", "launch"])
 def test_no_try_on_the_kernel_path(sub):
     """A failed build or launch raises; nothing catches it and runs the
     plain version instead."""
