@@ -12,12 +12,17 @@ fails:
 2. ``amm_gather`` at qwen3-1.7b's width: a [151936, 2048] bf16 table,
    65536 token ids from the planner's embedding stream, 8 banks; the
    kernel is bit-equal to its plain version, and so is a small int32
-   case whose parity plane is not the XOR of its banks;
+   case whose parity plane is not the XOR of its banks; its bound counts
+   the rows the reconstruction path reads;
 3. ``kv_decode`` at decode_32k and qwen3-1.7b's width (Hq 16, Hkv 8,
    D 128, S 32768, batch 128, bf16) with the planner's KV bank plan;
    ragged lengths with one empty and one full row; within one bf16
    rounding of the plain version (see ``BF16_ATOL``), the empty row
-   exactly 0; an f32 case within 1e-5;
+   exactly 0; an f32 case at S 32768 (32 splits a row) within 1e-5;
+   then the split-bank design's numbers: tile, split and CTA counts,
+   achieved GB/s and share of the bound, the split and combine kernels'
+   device times from one profiled call, and nvcc's ``-Xptxas -v`` lines
+   for the decode kernels, which must show no spill;
 4. the slice end to end: 4 decode steps, each an embedding lookup
    through ``banked_embedding_lookup``, an ``append`` and a
    ``decode_read``, held against the same steps on the plain versions;
@@ -182,7 +187,7 @@ def main() -> int:
     from repro_torch.kernels.amm_gather import (amm_gather_u32,
                                                 amm_gather_u32_plain)
     from repro_torch.kernels.banked_kv_decode import (
-        banked_kv_decode, banked_kv_decode_plain)
+        banked_kv_decode, banked_kv_decode_plain, kernel_split)
     from repro_torch.memory import (BankedKVCache, banked_embedding_lookup,
                                     plan_memory)
     from repro_torch.memory.planner import embedding_stream
@@ -246,16 +251,34 @@ def main() -> int:
     check(torch.equal(amm_gather_u32(small_b, small_p, small_i),
                       amm_gather_u32_plain(small_b, small_p, small_i)),
           "amm_gather kernel != plain on an inconsistent parity plane")
+    # the rows the function must read: even slots their direct row, odd
+    # slots their parity row and the other banks' rows at their offset
     distinct = torch.unique(idx).numel()
-    g_bound, g_by = bound_ms(GATHER_IDS * width * 2 + distinct * width * 2
+    depth = vocab // GATHER_BANKS
+    ids = idx.long()
+    odd = ids[1::2]
+    off = odd % depth
+    bank_ids = torch.arange(GATHER_BANKS, device=dev)
+    partners = (bank_ids[None, :] * depth + off[:, None])[
+        bank_ids[None, :] != (odd // depth)[:, None]]
+    table_rows = torch.unique(torch.cat([ids[0::2], partners])).numel()
+    parity_rows = torch.unique(off).numel()
+    g_bound, g_by = bound_ms(GATHER_IDS * width * 2
+                             + (table_rows + parity_rows) * width * 2
                              + GATHER_IDS * 4)
+    g_bound_direct, _ = bound_ms(GATHER_IDS * width * 2
+                                 + distinct * width * 2 + GATHER_IDS * 4)
     g_ms = time_ms(lambda: amm_gather_u32(banks, parity, idx))
     g_plain = time_ms(lambda: amm_gather_u32_plain(banks, parity, idx), 5)
     g_lib = time_ms(lambda: table[idx])
     print(f"gather [{vocab}, {width}] bf16 x {GATHER_IDS} ids "
           f"({distinct} distinct), {GATHER_BANKS} banks: bit-equal; "
           f"kernel {g_ms:.4f} ms, plain {g_plain:.4f} ms, "
-          f"table[idx] {g_lib:.4f} ms, bound {g_bound:.4f} ms")
+          f"table[idx] {g_lib:.4f} ms, bound {g_bound:.4f} ms ({g_by}: "
+          f"{GATHER_IDS} output rows, {table_rows} distinct direct and "
+          f"partner rows, {parity_rows} distinct parity rows; counting "
+          f"only the {distinct} requested rows gives {g_bound_direct:.4f} "
+          f"ms)")
     del got, want, small_b, small_p, small_i
 
     # ---- 3. kv_decode -----------------------------------------------
@@ -269,8 +292,9 @@ def main() -> int:
         lens[0], lens[1] = 0, s
         return lens
 
-    # f32 at a smaller batch: 1e-5
-    fb, fs = 8, 4096
+    # f32 at a smaller batch and the full length: 32 splits a row merged
+    # by the combine kernel, held to 1e-5
+    fb, fs = 4, seq
     q32 = torch.randn((fb, hq, hd), generator=gen, device=dev)
     k32 = torch.randn((fb, hkv, 8, fs // 8, hd), generator=gen, device=dev)
     v32 = torch.randn((fb, hkv, 8, fs // 8, hd), generator=gen, device=dev)
@@ -281,6 +305,7 @@ def main() -> int:
                                1e-5, 1e-5, "f32 kv_decode")
     check(bool(torch.all(o32[0] == 0)), "f32 empty row is not 0")
     del q32, k32, v32, o32
+    torch.cuda.empty_cache()
 
     cache = BankedKVCache.create(batch, hkv, seq, hd, dtype=torch.bfloat16,
                                  plan=kv_plan, device=dev)
@@ -306,9 +331,19 @@ def main() -> int:
     kv_ms = time_ms(lambda: banked_kv_decode(q, kb, vb, lens))
     kv_plain = time_ms(lambda: banked_kv_decode_plain(q, kb, vb, lens), 3, 1)
     valid = int(lens.sum().item())
-    kv_bound, kv_by = bound_ms(
-        valid * hkv * hd * 2 * 2 + 2 * q.numel() * 2 + batch * 4,
-        valid * hq * hd * 4)
+    kv_bytes = valid * hkv * hd * 2 * 2
+    kv_bound, kv_by = bound_ms(kv_bytes + 2 * q.numel() * 2 + batch * 4,
+                               valid * hq * hd * 4)
+    tile, split = kernel_split(hd, 2, sb)
+    n_splits = nb * (sb // split)
+    busy = int(((lens.long() + split - 1) // split).sum().item()) * hkv
+    kv_prof, _ = device_profile(lambda: banked_kv_decode(q, kb, vb, lens))
+    split_ms = sum(ms for k, ms in kv_prof.items() if "kv_split" in k)
+    combine_ms = sum(ms for k, ms in kv_prof.items() if "kv_combine" in k)
+    check(split_ms > 0 and combine_ms > 0,
+          f"the profile shows no split or combine kernel: {kv_prof}")
+    ptxas = [r for r in _build.ptxas_report("banked_kv_decode")
+             if "kv_split" in r["name"] or "kv_combine" in r["name"]]
     # yardstick the port never calls: SDPA with a length mask over the
     # same cache, on lengths with no empty row (SDPA gives NaN there)
     lib_lens = torch.clamp(lens, min=1)
@@ -327,6 +362,21 @@ def main() -> int:
           f"max err {f32_err:.3g} of 1e-5); "
           f"kernel {kv_ms:.4f} ms, plain {kv_plain:.4f} ms, "
           f"sdpa {kv_lib:.4f} ms, bound {kv_bound:.4f} ms")
+    print(f"kv_decode split design: tile {tile} positions, split {split} "
+          f"positions, {n_splits} splits a row, {batch * hkv * n_splits} "
+          f"split CTAs of which {busy} non-empty; {kv_bytes / 1e9:.4f} GB "
+          f"of valid K/V at {kv_bytes / kv_ms / 1e6:.1f} GB/s, "
+          f"{kv_bound / kv_ms:.1%} of the bound ({kv_ms / kv_bound:.2f}x "
+          f"it), {kv_lib / kv_ms:.2f}x faster than sdpa")
+    print(f"kv_decode one profiled call (device): split {split_ms:.4f} ms, "
+          f"combine {combine_ms:.4f} ms")
+    for r in ptxas:
+        print(f"ptxas {r['name']}: {r['registers']} registers, "
+              f"{r['smem']} bytes static smem, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
+    check(len(ptxas) > 0, "no -Xptxas -v lines for the decode kernels")
+    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+              for r in ptxas), "a decode kernel spills registers")
 
     # ---- 4. the slice end to end ------------------------------------
     step_plan = dataclasses.replace(emb_plan, n_banks=GATHER_BANKS)

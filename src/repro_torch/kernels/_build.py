@@ -6,7 +6,9 @@ is compiled by nvcc into its own shared library for Hopper
 ``build/repro_torch/`` at the root of the checkout, named by a hash of
 the source, so a second run reuses them and an edited source builds
 anew.  ``build_all`` starts one nvcc per missing library, all at once,
-and waits for them.
+and waits for them.  nvcc runs with ``-Xptxas -v``; its log (each
+kernel's registers, shared memory and spill bytes) is kept beside the
+library and read back by ``ptxas_report``.
 
 Nothing here falls back: a failed build, a failed load or a launch
 error raises.  The CPU tests never reach this module's build path,
@@ -19,6 +21,7 @@ import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -30,7 +33,7 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / \
     "repro_torch"
 KERNELS = ("amm_gather", "banked_kv_decode", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def nvcc_path() -> str:
@@ -51,6 +54,37 @@ def library_path(name: str) -> pathlib.Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def log_path(name: str) -> pathlib.Path:
+    """nvcc's log of the library of ``csrc/<name>.cu``."""
+    return library_path(name).with_suffix(".log")
+
+
+def ptxas_report(name: str) -> "list[dict]":
+    """Registers, shared memory and spill bytes of every kernel in the
+    library of ``csrc/<name>.cu``, parsed from its ``-Xptxas -v`` log:
+    one dict per entry function (``name`` is the mangled symbol)."""
+    found, cur = [], None
+    for line in log_path(name).read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = {"name": m.group(1), "registers": None, "smem": 0,
+                   "spill_stores": None, "spill_loads": None}
+            found.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return found
 
 
 def nvcc_command(nvcc: str, src: pathlib.Path, out: pathlib.Path
@@ -81,6 +115,7 @@ def build_all(names: "tuple[str, ...]" = KERNELS) -> float:
         if p.returncode != 0:
             failed.append(f"{n}.cu (nvcc exit {p.returncode}):\n{log}")
         else:
+            log_path(n).write_text(log)
             os.replace(tmp, out)      # atomic: concurrent builders agree
     if failed:
         raise RuntimeError("kernel build failed: " + "\n".join(failed))

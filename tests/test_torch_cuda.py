@@ -25,7 +25,8 @@ from repro_torch.kernels import (amm_gather, kv_decode, pack_amm_banks,
 from repro_torch.kernels.amm_gather import (amm_gather_u32,
                                             amm_gather_u32_plain)
 from repro_torch.kernels.banked_kv_decode import (banked_kv_decode,
-                                                  banked_kv_decode_plain)
+                                                  banked_kv_decode_plain,
+                                                  kernel_split)
 from repro_torch.kernels.ssd_scan import ssd_chunk_step, ssd_chunk_step_plain
 
 
@@ -91,37 +92,76 @@ def test_amm_gather_table_matches_take(cuda, dtype):
     assert torch.equal(got.view(word), table[idx].view(word))
 
 
+def _kv_lengths(mode, g, cuda, b, s, nb, d, itemsize):
+    """Row lengths for a kv_decode case.  ``random``: uniform in [1, S]
+    with row 0 full; ``boundaries``: one below, at and one above the
+    kernel's split length and the bank length, and the whole cache;
+    ``short``: a row shorter than one split and a row of length 1;
+    ``empty``: every row empty.  The last three set their own batch."""
+    sb = s // nb
+    _, split = kernel_split(d, itemsize, sb)
+    if mode == "random":
+        lens = torch.randint(1, s + 1, (b,), generator=g, device=cuda,
+                             dtype=torch.int32)
+        lens[0] = s
+        return lens
+    rows = {"boundaries": [split - 1, split, split + 1, sb - 1, sb, sb + 1,
+                           s],
+            "short": [max(1, split // 2), 1, max(1, split - 1)],
+            "empty": [0, 0]}[mode]
+    return torch.tensor(rows, dtype=torch.int32, device=cuda).clamp(0, s)
+
+
 @pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-5, 1e-5),
                                              (torch.bfloat16, 1e-4, 2**-7)])
 @pytest.mark.parametrize("b,hq,hkv,s,d,nb", [
     (2, 4, 2, 64, 16, 4), (1, 8, 8, 128, 32, 8), (3, 6, 2, 96, 8, 3),
     (4, 8, 4, 64, 16, 1), (2, 16, 1, 300, 128, 3), (2, 4, 2, 40, 12, 5),
     (2, 2, 1, 512, 256, 2), (3, 16, 8, 1024, 128, 8),
+    (2, 8, 1, 4096, 64, 2),          # group 8: two head blocks
+    (2, 16, 1, 2048, 256, 1),        # group 16, D 256: 2 splits a bank
+    (2, 12, 4, 3000, 12, 3),         # group 3; bf16 rows of 24 bytes
+    (2, 16, 8, 8192, 128, 2),        # decode_32k's heads: 4 splits a bank
+    (2, 4, 2, 32768, 128, 8),        # 32 splits combined per row
 ])
+@pytest.mark.parametrize("lengths", ["random", "boundaries", "short",
+                                     "empty"])
 def test_kv_decode_kernel_matches_plain(cuda, dtype, atol, rtol, b, hq, hkv,
-                                        s, d, nb):
+                                        s, d, nb, lengths):
     g = _gen(b * 100 + s + d)
+    lens = _kv_lengths(lengths, g, cuda, b, s, nb, d,
+                       torch.tensor([], dtype=dtype).element_size())
+    b = lens.numel()
     q = torch.randn((b, hq, d), generator=g, device=cuda).to(dtype)
     k = torch.randn((b, hkv, s, d), generator=g, device=cuda).to(dtype)
     v = torch.randn((b, hkv, s, d), generator=g, device=cuda).to(dtype)
-    lens = torch.randint(1, s + 1, (b,), generator=g, device=cuda,
-                         dtype=torch.int32)
-    lens[0] = s
+    before = banked_kv_decode.launches
     got = kv_decode(q, k, v, lens, n_banks=nb)
+    torch.cuda.synchronize()
+    assert banked_kv_decode.launches == before + 1
     sb = s // nb
     want = banked_kv_decode_plain(q, k.reshape(b, hkv, nb, sb, d),
                                   v.reshape(b, hkv, nb, sb, d), lens)
     torch.testing.assert_close(got.float(), want.float(), atol=atol,
                                rtol=rtol)
+    for i, n in enumerate(lens.tolist()):
+        if n == 0:
+            assert torch.all(got[i] == 0), "an empty row must decode to 0"
 
 
-def test_kv_decode_ragged_empty_rows_and_poison(cuda):
-    b, hq, hkv, s, d, nb = 4, 4, 2, 64, 16, 4
+@pytest.mark.parametrize("b,hq,hkv,s,d,nb,lens", [
+    (4, 4, 2, 64, 16, 4, [0, 5, 33, 64]),
+    # banks of 8192, 8 splits of 1024 each: the poison starts mid-split,
+    # at a split boundary and at a bank boundary
+    (4, 4, 2, 16384, 128, 2, [0, 1500, 3072, 8192]),
+])
+def test_kv_decode_ragged_empty_rows_and_poison(cuda, b, hq, hkv, s, d, nb,
+                                                lens):
     g = _gen(11)
     q = torch.randn((b, hq, d), generator=g, device=cuda)
     k = torch.randn((b, hkv, s, d), generator=g, device=cuda)
     v = torch.randn((b, hkv, s, d), generator=g, device=cuda)
-    lens = torch.tensor([0, 5, 33, 64], dtype=torch.int32, device=cuda)
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
     got = kv_decode(q, k, v, lens, n_banks=nb)
     want = banked_kv_decode_plain(q, k.reshape(b, hkv, nb, s // nb, d),
                                   v.reshape(b, hkv, nb, s // nb, d), lens)
@@ -133,6 +173,16 @@ def test_kv_decode_ragged_empty_rows_and_poison(cuda):
         vp[i, :, n:] = -1e4
     got2 = kv_decode(q, kp, vp, lens, n_banks=nb)
     assert (got2 - got).abs().max().item() <= 1e-6
+
+
+def test_kv_decode_tile_matches_kernel(cuda):
+    """The tiles the CPU tests of ``_split_len`` assume
+    (tests/test_torch_kernels.py, KV_TILES) are the kernel's own."""
+    tiles = {(128, 2): 32, (128, 4): 32, (256, 2): 16, (64, 2): 64,
+             (32, 2): 128, (16, 4): 256, (12, 4): 256, (8, 2): 512,
+             (8, 4): 512}
+    for (d, itemsize), tile in tiles.items():
+        assert kernel_split(d, itemsize, 4096)[0] == tile
 
 
 def test_kv_decode_rejects_wide_group(cuda):

@@ -25,7 +25,7 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import _build, amm_gather, kv_decode, pack_amm_banks
 from repro_torch.kernels import ref as torch_ref
 from repro_torch.kernels.amm_gather import amm_gather_u32
-from repro_torch.kernels.banked_kv_decode import banked_kv_decode
+from repro_torch.kernels.banked_kv_decode import _split_len, banked_kv_decode
 
 _NP_DTYPE = {"float32": np.float32, "bfloat16": jnp.bfloat16}
 _UINT = {2: np.uint16, 4: np.uint32}
@@ -166,16 +166,26 @@ def _kv_inputs(rng, b, hq, hkv, s, d, dtype):
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-5),
                                        ("bfloat16", 4e-2)])
 @pytest.mark.parametrize("b,hq,hkv,s,d,nb", _KV_SHAPES)
-@pytest.mark.parametrize("lengths", ["nonempty", "empty_and_full"])
+@pytest.mark.parametrize("lengths", ["nonempty", "empty_and_full",
+                                     "bank_edges"])
 def test_kv_decode_matches_jax(dtype, tol, b, hq, hkv, s, d, nb, lengths):
     """The port's kv_decode and its dense oracle against JAX's kv_decode
     and dense oracle; ``empty_and_full`` sets row 0 to length 0 (exact
-    zeros) and the last row to the whole cache."""
+    zeros) and the last row to the whole cache; ``bank_edges`` puts
+    every row's length on a bank boundary or one position either side
+    of it (the CUDA kernel's splits never cross a bank, so these are
+    split boundaries too)."""
     rng = np.random.default_rng(b * 1000 + s + d)
     q, k, v = _kv_inputs(rng, b, hq, hkv, s, d, dtype)
     lens = rng.integers(1, s + 1, b).astype(np.int32)
     if lengths == "empty_and_full":
         lens[-1], lens[0] = s, 0
+    if lengths == "bank_edges":
+        sb = s // nb
+        edges = [sb * j + o for j in range(1, nb + 1) for o in (0, -1, 1)]
+        lens = np.clip(np.asarray([edges[(i * 4) % len(edges)]
+                                   for i in range(b)]), 0, s
+                       ).astype(np.int32)
     jargs = [jnp.asarray(a) for a in (q, k, v, lens)]
     targs = [_cpu(a) for a in (q, k, v, lens)]
     want = np.asarray(jax_kv_decode(*jargs, n_banks=nb, mode="xla"),
@@ -231,6 +241,46 @@ def test_kv_decode_ragged_matches_jax(lens):
     np.testing.assert_allclose(got2, got, atol=1e-6)
 
 
+# positions a tile of the CUDA kernel, by (head dim, item size), as
+# kv_decode_tile reports them (tests/test_torch_cuda.py pins these)
+KV_TILES = {(128, 2): 32, (128, 4): 32, (256, 2): 16, (64, 2): 64,
+            (32, 2): 128, (16, 4): 256, (12, 4): 256, (8, 2): 512,
+            (8, 4): 512}
+
+
+@pytest.mark.parametrize("s,nb,d,itemsize,want", [
+    (32768, 8, 128, 2, 1024),        # decode_32k: 4 splits a bank
+    (32768, 8, 128, 4, 1024),
+    (32768, 1, 128, 2, 1024),        # one bank of 32 splits
+    (16384, 2, 128, 4, 1024),
+    (8192, 2, 128, 2, 1024),
+    (2048, 1, 256, 2, 1024),
+    (2048, 2, 64, 2, 1024),          # the whole bank
+    (3 * 4096, 3, 8, 2, 1024),       # tile 512: two tiles a split
+    (64, 4, 16, 4, 16), (128, 8, 32, 2, 16), (96, 3, 8, 4, 32),
+    (300, 3, 128, 2, 100), (40, 5, 12, 4, 8), (512, 2, 256, 2, 256),
+    (1024, 8, 128, 2, 128),
+    (12 * 1000, 3, 128, 2, 800),     # 125 tiles a bank: 5 splits of 25
+])
+def test_kv_decode_split_len_stays_inside_banks(s, nb, d, itemsize, want):
+    """Every split lies inside one bank, the splits tile each bank
+    exactly, and a split shorter than its bank is a whole number of
+    tiles (a whole bank may end in a partial tile, as a row's length
+    may)."""
+    sb = s // nb
+    tile = KV_TILES[d, itemsize]
+    split = _split_len(sb, tile)
+    assert split == want
+    assert sb % split == 0
+    assert split == sb or split % tile == 0
+    starts = range(0, s, split)
+    assert len(starts) == nb * (sb // split)
+    for start in starts:
+        assert start // sb == (start + split - 1) // sb   # one bank
+    if split < sb:
+        assert split <= 1024
+
+
 def test_kv_decode_rejects_non_dividing_banks():
     z = torch.zeros((1, 2, 10, 4))
     with pytest.raises(ValueError, match="divide"):
@@ -271,6 +321,35 @@ def test_nvcc_command_targets_hopper(tmp_path):
     assert cmd[cmd.index("-o") + 1] == str(tmp_path / "k.so")
     for flag in ("-O3", "-shared", "-std=c++17"):
         assert flag in cmd
+
+
+def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
+    """``-Xptxas -v`` lines kept beside a library: one record per entry
+    function, with its registers, static shared memory and spills."""
+    log = tmp_path / "k.log"
+    log.write_text(
+        "ptxas info    : 0 bytes gmem\n"
+        "ptxas info    : Compiling entry function '_Z5splitv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z5splitv\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 64 registers, used 1 barriers, 384 bytes "
+        "cmem[0]\n"
+        "ptxas info    : Compiling entry function '_Z7combinev' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z7combinev\n"
+        "    8 bytes stack frame, 4 bytes spill stores, 12 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 32 registers, 1024 bytes smem, 384 bytes "
+        "cmem[0]\n")
+    monkeypatch.setattr(_build, "log_path", lambda name: log)
+    assert _build.ptxas_report("k") == [
+        {"name": "_Z5splitv", "registers": 64, "smem": 0,
+         "spill_stores": 0, "spill_loads": 0},
+        {"name": "_Z7combinev", "registers": 32, "smem": 1024,
+         "spill_stores": 4, "spill_loads": 12}]
+    assert "-Xptxas" in _build.NVCC_FLAGS
 
 
 @pytest.mark.parametrize("name", _build.KERNELS)
