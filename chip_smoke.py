@@ -13,7 +13,11 @@ fails:
    65536 token ids from the planner's embedding stream, 8 banks; the
    kernel is bit-equal to its plain version, and so is a small int32
    case whose parity plane is not the XOR of its banks; its bound counts
-   the rows the reconstruction path reads;
+   the rows the reconstruction path reads; then the bytes the call moves
+   at the L2 (one row an even slot, NB an odd one, one written a slot)
+   and their rate, its time with the L2 flushed before each run, and
+   nvcc's ``-Xptxas -v`` lines for the gather kernels, which must show
+   no spill;
 3. ``kv_decode`` at decode_32k and qwen3-1.7b's width (Hq 16, Hkv 8,
    D 128, S 32768, batch 128, bf16) with the planner's KV bank plan;
    ragged lengths with one empty and one full row; within one bf16
@@ -31,6 +35,10 @@ fails:
    N 128, f32), an odd shape (Bt 2, H 3, Q 12, P 8, N 6) and bf16 x:
    the kernel within atol 1e-4 + rtol 1e-5 of its plain version (y of
    bf16 x within one bf16 step, rtol 2**-7, since both round it once);
+   then its route (split-TF32 on the tensor cores) with its bound and
+   the f32 CUDA-core bound, the device time and CTA count of each of its
+   three kernels (C B^T, y, h_out) from one profiled call, and the
+   ``-Xptxas -v`` lines, which must show no spill;
 6. Mamba2 serving at full width (24 layers, bf16 compute, random
    weights from seed 0): ``repro_torch.launch.serve.main`` with batch 8,
    prompt 4096 and 16 greedy decode steps must launch the SSD kernel
@@ -41,8 +49,9 @@ fails:
    port's prefill on the CPU (plain versions) within 1e-3; last the
    prefill and decode times and the prefill's device-time split.
 
-It then prints the ``kernels`` JSON line (kernel, plain, library and
-bound times), and last ``{"ok": true, "device": {...}}``.  It exits
+Every time is a median of device time between CUDA events (see
+``time_ms``).  It then prints the ``kernels`` JSON line (kernel, plain,
+library and bound times), and last ``{"ok": true, "device": {...}}``.  It exits
 non-zero, printing no result, when there is no CUDA device or the
 package is missing.
 """
@@ -62,6 +71,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+SPIN_CYCLES = 35_000_000      # ~20 ms at the H100's 1.755 GHz boost clock
+L2_BYTES = 50 * 2**20         # H100 L2 cache
 ARCH = "qwen3-1.7b"
 SHAPE = "decode_32k"
 GATHER_IDS = 65536
@@ -97,14 +109,21 @@ def check(ok: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-def time_ms(fn, reps: int = 10, warmup: int = 2) -> float:
+def time_ms(fn, reps: int = 10, warmup: int = 2, before=None) -> float:
     """Median device time of ``fn`` in ms, each run fenced by CUDA
-    events after a warm-up."""
+    events after a warm-up; ``before``, if given, runs before each run,
+    outside its events.  The card first spins for about 20 ms, so the
+    host queues every timed run before the first starts: the host's own
+    time between runs (the Python wrapper around a kernel shorter than
+    it) is not counted."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     pairs = []
     for _ in range(reps):
+        if before is not None:
+            before()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -127,10 +146,26 @@ def hold_close(got: torch.Tensor, want: torch.Tensor, atol: float,
     return err.max().item(), want.float().abs().max().item(), share
 
 
-def bound_ms(n_bytes: float, n_flops: float = 0.0) -> "tuple[float, str]":
+def bound_ms(n_bytes: float, n_flops: float = 0.0,
+             flops_per_s: float = F32_FLOPS_PER_S) -> "tuple[float, str]":
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    t_ops = n_flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_spills(report: "list[dict]", names: "tuple[str, ...]",
+                 what: str) -> None:
+    """Print the ``-Xptxas -v`` record of every kernel in ``report``
+    whose symbol holds one of ``names``; fail if there is none or one
+    spills."""
+    rows = [r for r in report if any(n in r["name"] for n in names)]
+    for r in rows:
+        print(f"ptxas {r['name']}: {r['registers']} registers, "
+              f"{r['smem']} bytes static smem, spill stores "
+              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
+    check(len(rows) > 0, f"no -Xptxas -v lines for the {what} kernels")
+    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+              for r in rows), f"a {what} kernel spills registers")
 
 
 def device_profile(fn) -> "tuple[dict[str, float], float]":
@@ -192,8 +227,10 @@ def main() -> int:
                                     plan_memory)
     from repro_torch.memory.planner import embedding_stream
     from repro_torch.kernels import ssd_chunk
+    from repro_torch.kernels.ssd_scan import kernel_tile as ssd_kernel_tile
     from repro_torch.kernels.ssd_scan import (ssd_chunk_step,
-                                              ssd_chunk_step_plain)
+                                              ssd_chunk_step_plain,
+                                              tile_counts)
     from repro_torch.launch import serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import (DTypePolicy, forward, init_model,
@@ -269,6 +306,12 @@ def main() -> int:
     g_bound_direct, _ = bound_ms(GATHER_IDS * width * 2
                                  + distinct * width * 2 + GATHER_IDS * 4)
     g_ms = time_ms(lambda: amm_gather_u32(banks, parity, idx))
+    # the same with the L2 flushed before each run (a write of twice its
+    # 50 MB), as the lookup finds it after rebuilding the parity plane
+    flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.int32, device=dev)
+    g_cold = time_ms(lambda: amm_gather_u32(banks, parity, idx),
+                     before=flush.zero_)
+    del flush
     g_plain = time_ms(lambda: amm_gather_u32_plain(banks, parity, idx), 5)
     g_lib = time_ms(lambda: table[idx])
     print(f"gather [{vocab}, {width}] bf16 x {GATHER_IDS} ids "
@@ -279,6 +322,22 @@ def main() -> int:
           f"partner rows, {parity_rows} distinct parity rows; counting "
           f"only the {distinct} requested rows gives {g_bound_direct:.4f} "
           f"ms)")
+    # the same call counted at the L2: an even slot reads its row, an odd
+    # slot its parity row and the other NB - 1 banks' rows, every slot
+    # writes one row
+    n_odd = GATHER_IDS // 2
+    l2_rows = (GATHER_IDS - n_odd) + n_odd * GATHER_BANKS + GATHER_IDS
+    l2_bytes = l2_rows * width * 2 + GATHER_IDS * 4
+    print(f"gather L2-side: {l2_bytes / 1e9:.4f} GB ({GATHER_IDS - n_odd} "
+          f"direct rows, {n_odd} x {GATHER_BANKS} reconstruction rows, "
+          f"{GATHER_IDS} rows written) in {g_ms:.4f} ms: "
+          f"{l2_bytes / g_ms / 1e9:.2f} TB/s; the bound's bytes move at "
+          f"{g_bound / g_ms * HBM_BYTES_PER_S / 1e12:.2f} TB/s "
+          f"({g_bound / g_ms:.1%} of the bound); with the L2 flushed "
+          f"before each run the kernel takes {g_cold:.4f} ms "
+          f"({g_bound / g_cold:.1%} of the bound)")
+    check_spills(_build.ptxas_report("amm_gather"), ("amm_gather_kernel",),
+                 "gather")
     del got, want, small_b, small_p, small_i
 
     # ---- 3. kv_decode -----------------------------------------------
@@ -342,8 +401,6 @@ def main() -> int:
     combine_ms = sum(ms for k, ms in kv_prof.items() if "kv_combine" in k)
     check(split_ms > 0 and combine_ms > 0,
           f"the profile shows no split or combine kernel: {kv_prof}")
-    ptxas = [r for r in _build.ptxas_report("banked_kv_decode")
-             if "kv_split" in r["name"] or "kv_combine" in r["name"]]
     # yardstick the port never calls: SDPA with a length mask over the
     # same cache, on lengths with no empty row (SDPA gives NaN there)
     lib_lens = torch.clamp(lens, min=1)
@@ -370,13 +427,8 @@ def main() -> int:
           f"it), {kv_lib / kv_ms:.2f}x faster than sdpa")
     print(f"kv_decode one profiled call (device): split {split_ms:.4f} ms, "
           f"combine {combine_ms:.4f} ms")
-    for r in ptxas:
-        print(f"ptxas {r['name']}: {r['registers']} registers, "
-              f"{r['smem']} bytes static smem, spill stores "
-              f"{r['spill_stores']} B, spill loads {r['spill_loads']} B")
-    check(len(ptxas) > 0, "no -Xptxas -v lines for the decode kernels")
-    check(all(r["spill_stores"] == 0 and r["spill_loads"] == 0
-              for r in ptxas), "a decode kernel spills registers")
+    check_spills(_build.ptxas_report("banked_kv_decode"),
+                 ("kv_split", "kv_combine"), "decode")
 
     # ---- 4. the slice end to end ------------------------------------
     step_plan = dataclasses.replace(emb_plan, n_banks=GATHER_BANKS)
@@ -492,12 +544,32 @@ def main() -> int:
     ssd_flops = sb * (2 * tri * sn + sh * (2 * tri * sp + 4 * sq * sn * sp))
     ssd_bytes = 4 * (2 * sb * sh * sq * sp + 2 * sb * sh * sp * sn
                      + 2 * sb * sq * sn + 2 * sb * sh * sq)
-    ssd_bound, ssd_by = bound_ms(ssd_bytes, ssd_flops)
+    # the kernel's route: every product as three TF32 tensor-core
+    # products (split precision), so its bound is 3x the flops at the
+    # TF32 rate; on f32 CUDA cores it would be 1x at the f32 rate
+    ssd_bound_f32, ssd_by_f32 = bound_ms(ssd_bytes, ssd_flops)
+    ssd_bound, ssd_by = bound_ms(ssd_bytes, 3 * ssd_flops, TF32_FLOPS_PER_S)
     print(f"ssd Bt {sb} H {sh} Q {sq} P {sp} N {sn} f32: "
           f"{ssd_flops / 1e9:.3f} GFLOP, {ssd_bytes / 1e6:.2f} MB; kernel "
-          f"{ssd_ms:.4f} ms, plain {ssd_plain:.4f} ms, bound "
-          f"{ssd_bound:.4f} ms ({ssd_by}); no single PyTorch call computes "
-          f"this function, so library_ms is null")
+          f"{ssd_ms:.4f} ms, plain {ssd_plain:.4f} ms; route: split-TF32 "
+          f"mma.sync on the tensor cores, bound {ssd_bound:.4f} ms "
+          f"({ssd_by}: 3 x {ssd_flops / 1e9:.3f} GFLOP at "
+          f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s; bytes alone "
+          f"{ssd_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms), "
+          f"{ssd_bound / ssd_ms:.1%} of it; the f32 CUDA-core bound is "
+          f"{ssd_bound_f32:.4f} ms ({ssd_by_f32}); no single PyTorch call "
+          f"computes this function, so library_ms is null")
+    tiles = tile_counts(sb, sh, sq, sp, sn, ssd_kernel_tile())
+    ssd_prof, _ = device_profile(lambda: ssd_chunk(*ssd_in))
+    per_kernel = {k: sum(ms for name, ms in ssd_prof.items() if k in name)
+                  for k in ("ssd_cb_kernel", "ssd_y_kernel",
+                            "ssd_state_kernel")}
+    check(all(ms > 0 for ms in per_kernel.values()),
+          f"the profile misses an SSD kernel: {ssd_prof}")
+    print("ssd one profiled call (device): " + ", ".join(
+        f"{k} {ms:.4f} ms ({tiles[k.split('_')[1]]} CTAs)"
+        for k, ms in per_kernel.items()))
+    check_spills(_build.ptxas_report("ssd_scan"), ("ssd_",), "SSD")
     del ssd_in
 
     # ---- 6. Mamba2 serving, end to end ------------------------------

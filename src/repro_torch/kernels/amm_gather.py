@@ -11,10 +11,12 @@ path returns the same word (the H-NTX-Rd invariant).
 Words are carried as int32 (f32 table) or int16 (bf16 table) bit
 patterns, because XOR is bitwise and torch's unsigned types are limited.
 ``amm_gather_u32`` launches ``csrc/amm_gather.cu`` on a CUDA tensor and
-runs ``amm_gather_u32_plain`` on a CPU tensor.  Slot parity is the
-request's index in the whole call; the JAX block body counts within its
-block, which agrees whenever the block size is even or the call is one
-block, and gives the same output either way when parity is consistent.
+runs ``amm_gather_u32_plain`` on a CPU tensor.  The kernel serves a pair
+of slots (one even, one odd) per warp and is instantiated per word width
+(``_word_bytes``).  Slot parity is the request's index in the whole call;
+the JAX block body counts within its block, which agrees whenever the
+block size is even or the call is one block, and gives the same output
+either way when parity is consistent.
 """
 from __future__ import annotations
 

@@ -13,7 +13,11 @@ Inputs are read as f32.  As in the JAX package, whose block body casts
 y to x's dtype and h_out to h_in's before they are stored as f32, y is
 rounded through x's dtype and h_out through h_in's wherever those are
 not f32.  ``ssd_chunk_step`` launches ``csrc/ssd_scan.cu`` on CUDA
-tensors and runs ``ssd_chunk_step_plain`` on CPU tensors.
+tensors and runs ``ssd_chunk_step_plain`` on CPU tensors.  The kernel
+computes C B^T once a batch row into an f32 workspace of
+``workspace_shape`` that the wrapper allocates, then y and h_out over
+square tiles of the edge the library reports (``ssd_chunk_tile``);
+``tile_counts`` gives the CTAs of each of its three launches.
 """
 from __future__ import annotations
 
@@ -26,6 +30,31 @@ from repro_torch.kernels import _build
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y (heads), .z (batch)
+
+
+def workspace_shape(bt: int, q: int, tile: int) -> "tuple[int, int, int]":
+    """The C B^T workspace, [Bt, Qp, Qp] f32 with Qp = Q rounded up to a
+    multiple of the tile (only its causal tiles are written and read)."""
+    qp = -(-q // tile) * tile
+    return bt, qp, qp
+
+
+def tile_counts(bt: int, h: int, q: int, p: int, n: int, tile: int
+                ) -> "dict[str, int]":
+    """CTAs of the kernel's three launches: one per causal C B^T tile of
+    each batch row; one per (row tile, head-dim tile, head, batch row)
+    for y; one per (head-dim tile, state tile, head, batch row) for
+    h_out (none when N is 0)."""
+    qt, pt, nt = (-(-d // tile) for d in (q, p, n))
+    return {"cb": bt * qt * (qt + 1) // 2, "y": bt * h * qt * pt,
+            "state": bt * h * pt * nt}
+
+
+def _vec_copies(p: int, n: int, *tensors: torch.Tensor) -> bool:
+    """True when the kernel may stage its tiles in 16-byte copies: P and
+    N are multiples of 4 floats and every base is 16-byte aligned."""
+    return p % 4 == 0 and n % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                             for t in tensors)
 
 
 def _round_through(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -61,10 +90,17 @@ def ssd_chunk_step_plain(x: torch.Tensor, dt: torch.Tensor,
 def _launcher() -> tuple:
     lib = _build.load("ssd_scan")
     fn = lib.ssd_chunk_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + \
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.ssd_chunk_tile.restype = ctypes.c_int
     return lib, fn
+
+
+@functools.cache
+def kernel_tile() -> int:
+    """The tile edge of the CUDA kernel, as its library reports it."""
+    return _launcher()[0].ssd_chunk_tile()
 
 
 def ssd_chunk_step(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
@@ -95,9 +131,13 @@ def ssd_chunk_step(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     y = torch.empty((bt, h, q, p), dtype=torch.float32, device=dev)
     h_out = torch.empty((bt, h, p, n), dtype=torch.float32, device=dev)
     lib, fn = _launcher()
+    ws = torch.empty(workspace_shape(bt, q, kernel_tile()),
+                     dtype=torch.float32, device=dev)
+    vec = _vec_copies(p, n, *ins)
     with torch.cuda.device(dev):
         code = fn(*(t.data_ptr() for t in ins), y.data_ptr(),
-                  h_out.data_ptr(), bt, h, q, p, n, _build.stream_ptr(x))
+                  h_out.data_ptr(), ws.data_ptr(), bt, h, q, p, n, int(vec),
+                  _build.stream_ptr(x))
     _build.check_status(lib, code, "ssd_chunk_step")
     ssd_chunk_step.launches += 1
     return _round_through(y, x.dtype), _round_through(h_out, h_in.dtype)

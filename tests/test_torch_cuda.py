@@ -17,17 +17,25 @@ chunk sums in f32 in another order than the plain version: atol 1e-4
 (the reference's SSD tolerance) + rtol 1e-5; with bf16 x both round y
 once to bf16, so y may differ by one bf16 step (rtol 2**-7).
 """
+import importlib
+import math
+
 import pytest
 import torch
 
 from repro_torch.kernels import (amm_gather, kv_decode, pack_amm_banks,
                                  ssd_chunk)
+from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.amm_gather import (amm_gather_u32,
                                             amm_gather_u32_plain)
 from repro_torch.kernels.banked_kv_decode import (banked_kv_decode,
                                                   banked_kv_decode_plain,
                                                   kernel_split)
 from repro_torch.kernels.ssd_scan import ssd_chunk_step, ssd_chunk_step_plain
+
+# the module, not the ``amm_gather`` function that ``repro_torch.kernels``
+# exports under the same name
+gather_mod = importlib.import_module("repro_torch.kernels.amm_gather")
 
 
 @pytest.fixture
@@ -78,6 +86,50 @@ def test_amm_gather_u32_unaligned_base(cuda):
                         dtype=torch.int32)
     assert torch.equal(amm_gather_u32(banks, parity, idx),
                        amm_gather_u32_plain(banks, parity, idx))
+
+
+def _offset_view(flat: torch.Tensor, shape, offset: int) -> torch.Tensor:
+    """A contiguous view of ``shape`` starting ``offset`` elements into
+    ``flat``, to move its base off a 16-byte boundary."""
+    return flat[offset:offset + math.prod(shape)].view(shape)
+
+
+@pytest.mark.parametrize("nb", [1, 2, 3, 4, 5, 6, 8])
+@pytest.mark.parametrize("n", [1, 2, 37, 64])
+@pytest.mark.parametrize("word,d,offset,word_bytes", [
+    (torch.int32, 8, 0, 16),        # 32-byte rows: 16-byte words
+    (torch.int32, 6, 0, 8),         # 24-byte rows: 8-byte words
+    (torch.int32, 3, 0, 4),         # 12-byte rows: 4-byte words
+    (torch.int16, 5, 0, 2),         # 10-byte rows: 2-byte words
+    (torch.int32, 8, 1, 4),         # 4 bytes past a 16-byte boundary
+])
+def test_amm_gather_every_instantiation(cuda, nb, n, word, d, offset,
+                                        word_bytes):
+    """Every word-width instantiation, bank counts that fill the bank
+    loop's batches of 4 or leave one partial, odd and even request counts,
+    on a parity plane that is not the XOR of its banks: bit-equal to the
+    plain version."""
+    g = _gen(nb * 100 + n + d)
+    lo, hi = (-2**31, 2**31 - 1) if word == torch.int32 else (-2**15, 2**15)
+    rows = 19
+
+    def rand(shape):
+        flat = torch.randint(lo, hi, (offset + math.prod(shape),),
+                             generator=g, device=cuda, dtype=word)
+        return _offset_view(flat, shape, offset)
+
+    banks = rand((nb, rows, d))
+    parity = rand((rows, d))
+    idx = torch.randint(0, nb * rows, (n,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    out = torch.empty((n, d), dtype=word, device=cuda)
+    assert gather_mod._word_bytes(d * banks.element_size(), banks, parity,
+                                  out) == word_bytes
+    before = amm_gather_u32.launches
+    got = amm_gather_u32(banks, parity, idx)
+    torch.cuda.synchronize()
+    assert amm_gather_u32.launches == before + 1
+    assert torch.equal(got, amm_gather_u32_plain(banks, parity, idx))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -218,10 +270,23 @@ def _ssd_inputs(g, cuda, bt, h, q, p, n):
     (1, 2, 8, 4, 4), (2, 4, 16, 8, 8), (2, 3, 12, 8, 6), (2, 3, 12, 4, 6),
     (1, 2, 64, 16, 32), (2, 5, 100, 70, 130), (1, 3, 65, 64, 33),
     (8, 24, 256, 64, 128),          # mamba2-130m's chunk, as on the path
+    (2, 3, 40, 24, 20),             # Q, P, N not multiples of the mma tile
+    (1, 24, 256, 64, 128),          # Bt 1 at the path's chunk
+    (2, 2, 200, 128, 64),           # two head-dim tiles, a ragged row tile
 ])
-def test_ssd_chunk_kernel_matches_plain(cuda, bt, h, q, p, n):
+@pytest.mark.parametrize("aligned", [True, False])
+def test_ssd_chunk_kernel_matches_plain(cuda, bt, h, q, p, n, aligned):
+    """``aligned`` False moves x's base 4 bytes off a 16-byte boundary,
+    which sends every tile through the 4-byte copies."""
     g = _gen(bt * 1000 + q + n)
     ins = _ssd_inputs(g, cuda, bt, h, q, p, n)
+    if not aligned:
+        flat = torch.empty(ins[0].numel() + 1, device=cuda)
+        x = _offset_view(flat, ins[0].shape, 1)
+        x.copy_(ins[0])
+        ins = (x,) + ins[1:]
+    assert ssd_mod._vec_copies(p, n, *ins) == (aligned and p % 4 == 0
+                                               and n % 4 == 0)
     before = ssd_chunk_step.launches
     y, h_out = ssd_chunk(*ins)
     torch.cuda.synchronize()
@@ -241,3 +306,46 @@ def test_ssd_chunk_kernel_rounds_y_through_bf16_x(cuda):
     assert torch.equal(y, y.to(torch.bfloat16).float())
     torch.testing.assert_close(y, want_y, atol=1e-4, rtol=2.0 ** -7)
     torch.testing.assert_close(h_out, want_h, atol=1e-4, rtol=1e-5)
+
+
+def test_ssd_chunk_kernel_deep_decay(cuda):
+    """dt 0.1 and A -16 at every position: cum falls to about -410 within
+    the chunk, where exp(-cum_j) alone would overflow; the outputs stay
+    finite and within the same tolerance."""
+    g = _gen(91)
+    bt, h, q, p, n = 2, 4, 256, 64, 128
+    x, _, _, B, C, h_in = _ssd_inputs(g, cuda, bt, h, q, p, n)
+    dt = torch.full((bt, h, q), 0.1, device=cuda)
+    cum = torch.cumsum(dt * -16.0, dim=-1)
+    assert cum.min().item() < -400
+    y, h_out = ssd_chunk(x, dt, cum, B, C, h_in)
+    want_y, want_h = ssd_chunk_step_plain(x, dt, cum, B, C, h_in)
+    assert bool(torch.isfinite(y).all() and torch.isfinite(h_out).all())
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(h_out, want_h, atol=1e-4, rtol=1e-5)
+
+
+def test_ssd_chunk_kernel_keeps_bits_below_tf32(cuda):
+    """At the path's chunk, the operands rounded to TF32 (one tensor-core
+    product each, as plain TF32 would take them) move the plain version
+    out of the gate; the kernel's split products stay inside it."""
+    g = _gen(93)
+    ins = _ssd_inputs(g, cuda, 8, 24, 256, 64, 128)
+
+    def tf32(t):
+        return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    want_y, want_h = ssd_chunk_step_plain(*ins)
+    x, dt, cum, B, C, h_in = ins
+    coarse_y, _ = ssd_chunk_step_plain(tf32(x), dt, cum, tf32(B), tf32(C),
+                                       tf32(h_in))
+    assert not torch.allclose(coarse_y, want_y, atol=1e-4, rtol=1e-5)
+    y, h_out = ssd_chunk(*ins)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-5)
+    torch.testing.assert_close(h_out, want_h, atol=1e-4, rtol=1e-5)
+
+
+def test_ssd_tile_matches_kernel(cuda):
+    """The tile the CPU tests of ``workspace_shape`` and ``tile_counts``
+    assume (tests/test_torch_ssm.py, SSD_TILE) is the kernel's own."""
+    assert ssd_mod.kernel_tile() == 64

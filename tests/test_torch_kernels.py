@@ -24,7 +24,7 @@ from repro.kernels.amm_gather import amm_gather_u32 as jax_amm_gather_u32
 from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import _build, amm_gather, kv_decode, pack_amm_banks
 from repro_torch.kernels import ref as torch_ref
-from repro_torch.kernels.amm_gather import amm_gather_u32
+from repro_torch.kernels.amm_gather import _word_bytes, amm_gather_u32
 from repro_torch.kernels.banked_kv_decode import _split_len, banked_kv_decode
 
 _NP_DTYPE = {"float32": np.float32, "bfloat16": jnp.bfloat16}
@@ -128,6 +128,19 @@ def test_amm_gather_u32_inconsistent_parity_matches_jax(word, nb, rows, d,
     np.testing.assert_array_equal(got, want)
     direct = banks.reshape(nb * rows, d)[idx]
     assert not np.array_equal(got, direct), "parity path never exercised"
+
+
+@pytest.mark.parametrize("row_bytes,offset,want", [
+    (4096, 0, 16), (24, 0, 8), (12, 0, 4), (10, 0, 2), (4096, 4, 4),
+    (4096, 8, 8), (4096, 2, 2),
+])
+def test_gather_word_by_pitch_and_base(row_bytes, offset, want):
+    """The widest word that divides the row pitch and every base."""
+    flat = torch.zeros(64, dtype=torch.int16)
+    base = flat.data_ptr() % 16
+    view = flat[(16 - base) // 2 + offset // 2:]
+    assert view.data_ptr() % 16 == offset
+    assert _word_bytes(row_bytes, view, flat[(16 - base) // 2:]) == want
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

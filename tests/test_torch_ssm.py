@@ -27,7 +27,9 @@ from repro.models import ssm as jax_ssm
 from repro_torch import configs
 from repro_torch.convert import params_from_numpy, tensor_from_numpy
 from repro_torch.kernels import ssd_chunk
-from repro_torch.kernels.ssd_scan import ssd_chunk_step
+from repro_torch.kernels.ssd_scan import (_vec_copies, ssd_chunk_step,
+                                          ssd_chunk_step_plain, tile_counts,
+                                          workspace_shape)
 from repro_torch.launch import serve
 from repro_torch.models import (DTypePolicy, decode_step, embed_tokens,
                                 forward, init_model, make_cache, prefill)
@@ -108,6 +110,39 @@ def test_ssd_chunk_step_counts_no_cpu_launch():
     before = ssd_chunk_step.launches
     ssd_chunk(*map(_cpu, _chunk_inputs(1, 1, 2, 8, 4, 4)))
     assert ssd_chunk_step.launches == before
+
+
+# the CUDA kernel's tile edge (checked against the library on the card by
+# tests/test_torch_cuda.py::test_ssd_tile_matches_kernel)
+SSD_TILE = 64
+
+
+@pytest.mark.parametrize("bt,h,q,p,n,ws,counts", [
+    # mamba2-130m's chunk: 10 causal C B^T tiles a row, 4 row tiles
+    (8, 24, 256, 64, 128, (8, 256, 256), {"cb": 80, "y": 768, "state": 384}),
+    (1, 24, 256, 64, 128, (1, 256, 256), {"cb": 10, "y": 96, "state": 48}),
+    (2, 3, 12, 8, 6, (2, 64, 64), {"cb": 2, "y": 6, "state": 6}),
+    (2, 5, 100, 70, 130, (2, 128, 128), {"cb": 6, "y": 40, "state": 60}),
+    (1, 3, 65, 64, 33, (1, 128, 128), {"cb": 3, "y": 6, "state": 3}),
+    (2, 3, 40, 24, 20, (2, 64, 64), {"cb": 2, "y": 6, "state": 6}),
+    (1, 2, 8, 4, 0, (1, 64, 64), {"cb": 1, "y": 2, "state": 0}),
+])
+def test_ssd_workspace_and_tile_counts(bt, h, q, p, n, ws, counts):
+    assert workspace_shape(bt, q, SSD_TILE) == ws
+    assert tile_counts(bt, h, q, p, n, SSD_TILE) == counts
+
+
+@pytest.mark.parametrize("p,n,offset,want", [
+    (64, 128, 0, True), (24, 20, 0, True), (70, 130, 0, False),
+    (8, 6, 0, False), (64, 128, 1, False), (64, 128, 4, True),
+])
+def test_ssd_vec_copies(p, n, offset, want):
+    """16-byte staging needs P and N in multiples of 4 floats and every
+    base on a 16-byte boundary."""
+    flat = torch.zeros(64)
+    lead = (16 - flat.data_ptr() % 16) % 16 // 4
+    t = flat[lead + offset:]
+    assert _vec_copies(p, n, t, flat[lead:]) == want
 
 
 # ---------------------------------------------------------- ssd chunked
