@@ -12,6 +12,15 @@ whose chunked SSD scan runs every chunk through the hand-written chunk
 kernel (``kernels.ssd_scan``).  Kernel sources live in ``csrc/`` and
 are built with nvcc on first use.
 
+It also holds the paper's functional AMM models: the whole-trace replay
+engine (``core.amm.replay``: every design kind's flat state, batched on
+a leading lane axis, with fault injection), the per-step models behind
+``core.amm.make_amm``, and the fault layer (``core.fault``: seeded
+campaigns of bit flips, stuck-at bits and bank losses, classified by
+each design's own redundancy), which fills the DSE points' ``res_*``
+fields.  ``kernels.ref.amm_gather_replay_ref`` runs the gather as a
+replay of the H-NTX-Rd model, the oracle the gather kernel is held to.
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a kernel wrapper given a CPU tensor takes the
 kernel's plain PyTorch version, and given a CUDA tensor launches the

@@ -4,10 +4,59 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.amm.replay import init_flat, replay_batched
+from repro_torch.core.amm.spec import AMMSpec
+
 
 def amm_gather_ref(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """table: [V, D]; idx: [N] -> [N, D]."""
     return table[idx.long()]
+
+
+def amm_gather_replay_ref(table: torch.Tensor,
+                          idx: torch.Tensor) -> torch.Tensor:
+    """Replay-backed oracle for ``amm_gather``: the gather is an op trace
+    on the H-NTX-Rd *functional model* (``repro_torch.core.amm.replay``),
+    one AMM instance per payload column on the batch axis, all replaying
+    the same request stream, on the table's device.
+
+    Requests are paired two per cycle (the kernel's 2 read ports): even
+    slots decode through the direct path, odd slots through the
+    XOR-reconstruction (parity) path, exactly like the kernel's
+    conflict-free second port.  table: [V, D] of 2- or 4-byte words (the
+    bits are what is gathered); idx: [N] -> [N, D].
+    """
+    v, d = table.shape
+    size = table.element_size()
+    if size == 4:
+        cols = table.view(torch.int32)
+    elif size == 2:
+        cols = table.view(torch.int16).to(torch.int32) & 0xFFFF
+    else:
+        raise ValueError(f"no word type for {table.dtype}")
+    spec = AMMSpec("h_ntx_rd", n_read=2, n_write=1, depth=v)
+    dev = table.device
+    states = init_flat(spec, cols.T, dev)                 # [D, 3, V / 2]
+
+    n = idx.shape[0]
+    padded = torch.cat([idx.long(), torch.zeros(n % 2, dtype=torch.int64,
+                                                device=dev)])
+    cycles = padded.shape[0] // 2
+    ra = padded.view(cycles, 2)
+    wa = torch.zeros((cycles, 1), dtype=torch.int64, device=dev)
+    wv = torch.zeros((cycles, 1), dtype=torch.int32, device=dev)
+    wm = torch.zeros((cycles, 1), dtype=torch.bool, device=dev)
+    _, result = replay_batched(spec, states, ra, wa, wv, wm,
+                               share_trace=True, device=dev)
+
+    # [D, T, 2]: keep direct reads from even slots, parity from odd slots
+    slots = torch.stack([result.read_vals[..., 0],
+                         result.parity_vals[..., 1]], dim=-1)
+    flat = slots.reshape(d, cycles * 2)[:, :n].T.contiguous()   # [N, D]
+    if size == 2:
+        flat = torch.where(flat >= 1 << 15, flat - (1 << 16),
+                           flat).to(torch.int16)
+    return flat.view(table.dtype)
 
 
 def kv_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

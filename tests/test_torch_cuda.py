@@ -20,6 +20,7 @@ once to bf16, so y may differ by one bf16 step (rtol 2**-7).
 import importlib
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,6 +33,11 @@ from repro_torch.kernels.banked_kv_decode import (banked_kv_decode,
                                                   banked_kv_decode_plain,
                                                   kernel_split)
 from repro_torch.kernels.ssd_scan import ssd_chunk_step, ssd_chunk_step_plain
+from repro_torch.core.amm import replay as rp
+from repro_torch.core.amm.spec import AMMSpec
+from repro_torch.core.fault import (build_masks, sample_faults,
+                                    tile_states)
+from repro_torch.kernels.ref import amm_gather_replay_ref
 
 # the module, not the ``amm_gather`` function that ``repro_torch.kernels``
 # exports under the same name
@@ -349,3 +355,94 @@ def test_ssd_tile_matches_kernel(cuda):
     """The tile the CPU tests of ``workspace_shape`` and ``tile_counts``
     assume (tests/test_torch_ssm.py, SSD_TILE) is the kernel's own."""
     assert ssd_mod.kernel_tile() == 64
+
+
+# ---------------------------------------------------- replay and faults
+# every design kind, a sub-banked geometry among them
+REPLAY_SPECS = [
+    AMMSpec("ideal", 2, 2, 64), AMMSpec("banked", 4, 4, 64, n_banks=2),
+    AMMSpec("multipump", 2, 2, 64), AMMSpec("h_ntx_rd", 4, 1, 64),
+    AMMSpec("b_ntx_wr", 1, 2, 64), AMMSpec("hb_ntx", 4, 2, 64),
+    AMMSpec("hb_ntx", 4, 2, 64, n_banks=4), AMMSpec("lvt", 4, 2, 64),
+    AMMSpec("remap", 4, 2, 64),
+]
+
+
+def _campaign_inputs(spec, n_faults=16, n_cycles=64):
+    ops = rp.make_trace(spec, n_cycles, seed=3)
+    vals = np.random.default_rng(4).integers(0, 2**32, spec.depth,
+                                             dtype=np.uint32)
+    return ops, vals, sample_faults(spec, n_faults, 5, n_cycles)
+
+
+@pytest.mark.parametrize("spec", REPLAY_SPECS, ids=lambda s: s.describe())
+def test_replay_faulty_batched_cuda_matches_cpu(cuda, spec):
+    ops, vals, faults = _campaign_inputs(spec)
+    out = {}
+    for dev in ("cpu", cuda):
+        out[str(dev)] = rp.replay_faulty_batched(
+            spec, tile_states(spec, vals, len(faults), dev),
+            build_masks(spec, faults, dev), *ops, device=dev)
+    (st_c, res_c), (st_g, res_g) = out["cpu"], out["cuda"]
+    assert res_g.read_vals.is_cuda
+    for got, want in zip(res_g, res_c):
+        assert (got is None) == (want is None)
+        if want is not None:
+            assert torch.equal(got.cpu(), want)
+    assert set(st_g) == set(st_c)
+    for k in st_c:
+        assert torch.equal(st_g[k].cpu(), st_c[k]), k
+
+
+@pytest.mark.parametrize("spec", REPLAY_SPECS, ids=lambda s: s.describe())
+def test_replay_loop_reads_nothing_back(cuda, spec):
+    """With every input already on the card, a fault-injected replay runs
+    under CUDA's sync debug mode set to error: nothing in the cycle loop
+    waits for the device."""
+    ops, vals, faults = _campaign_inputs(spec, 4, 16)
+    states = tile_states(spec, vals, len(faults), cuda)
+    masks = build_masks(spec, faults, cuda)
+    ra, wa, wv, wm = ops
+    trace = (torch.from_numpy(ra).to(cuda), torch.from_numpy(wa).to(cuda),
+             rp.words(wv, cuda), torch.from_numpy(wm).to(cuda))
+    want = rp.replay_faulty_batched(spec, states, masks, *trace,
+                                    device=cuda)   # builds the index tables
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rp.replay_faulty_batched(spec, states, masks, *trace,
+                                       device=cuda)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(got[1].read_vals, want[1].read_vals)
+
+
+@pytest.mark.parametrize("spec", REPLAY_SPECS, ids=lambda s: s.describe())
+def test_tile_states_lanes_do_not_share_storage(cuda, spec):
+    """Every lane of a campaign's batch is its own memory: a write into
+    one lane changes no other (lanes of an ``expand`` would all change)."""
+    vals = np.arange(spec.depth, dtype=np.uint32)
+    states = tile_states(spec, vals, 3, cuda)
+    for k, v in states.items():
+        assert v.stride(0) == v[0].numel(), k
+        ptrs = {v[i].data_ptr() for i in range(3)}
+        assert len(ptrs) == 3, k
+        v[1].fill_(-1)
+        assert torch.equal(v[0], v[2]), k
+        assert not torch.equal(v[0], v[1]), k
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 63, 64])
+def test_amm_gather_replay_ref_matches_kernel(cuda, dtype, n):
+    """The replay-backed oracle on the card, bit-equal to the CUDA gather
+    and to ``table[idx]``."""
+    g = _gen(11)
+    table = torch.randn((250, 24), generator=g, device=cuda).to(dtype)
+    idx = torch.randint(0, 250, (n,), generator=g, device=cuda)
+    got = amm_gather_replay_ref(table, idx)
+    word = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert got.is_cuda
+    assert torch.equal(got.view(word), amm_gather(table, idx, n_banks=5
+                                                  ).view(word))
+    assert torch.equal(got.view(word), table[idx].view(word))

@@ -67,11 +67,12 @@ def test_importing_the_port_loads_no_jax():
     assert int(out.stdout.strip()) >= 20     # every module was walked
 
 
-@pytest.mark.parametrize("sub", ["kernels", "memory", "models", "launch"])
+@pytest.mark.parametrize("sub", ["kernels", "memory", "models", "launch",
+                                 "core"])
 def test_no_try_on_the_kernel_path(sub):
     """A failed build or launch raises; nothing catches it and runs the
     plain version instead."""
-    for path in sorted((PORT / sub).glob("*.py")):
+    for path in sorted((PORT / sub).rglob("*.py")):
         tree = ast.parse(path.read_text())
         tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
         assert not tries, f"{path.relative_to(ROOT)} has try at {tries}"
