@@ -61,7 +61,23 @@ fails:
    gather oracle at qwen3-1.7b's width (a [151936, 2048] bf16 table, the
    first 4096 ids of phase 2's stream: 2048 H-NTX-Rd 2R1W instances,
    one a column, 2048 two-read cycles) bit-equal to the CUDA gather (8
-   banks) and to ``table[idx]``, with its time and launches.
+   banks) and to ``table[idx]``, with its time and launches;
+8. the batched timing backend (``cycle_lanes``, one CTA a design lane):
+   (a) the 390 TINY rows of ``tests/golden_schedule.json``, one launch a
+   benchmark, equal row for row; (b) the path: the full-size DSE matrix,
+   15 benchmarks x 20 designs x unrolls 1, 2, 4, 8 through
+   ``schedule_batched``, one launch of 80 lanes a benchmark, equal to
+   ``tests/golden_schedule_full.json`` row for row, with each launch's
+   device time (CUDA events around the wrapper), the most cycles a lane
+   simulated and the time a simulated cycle; (c) on bfs_queue at full
+   size, the kernel equal to its plain version on the host CPU in
+   results, remap maps and event logs, with the plain version's time
+   and the kernel's on the same inputs (``plain_inputs_ms`` in the
+   ``kernels`` line: ``ms`` is the whole matrix of (b));
+   (d) ``sweep_batched`` on the card for paged_kv: its ``DSEPoint``s and
+   Pareto fronts equal to those of the golden rows through
+   ``point_from_schedule``; (e) the kernels' ``-Xptxas -v`` lines, which
+   must show no spill.
 
 Every time is a median of device time between CUDA events (see
 ``time_ms``).  It then prints the ``kernels`` JSON line (kernel, plain,
@@ -122,6 +138,16 @@ GOLDEN_FAULTS = pathlib.Path(__file__).resolve().parent / "tests" \
 CAMPAIGN_DEPTH, CAMPAIGN_WIDTH = 256, 32
 FULL_FAULTS, FULL_CYCLES, CAMPAIGN_SEED = 128, 256, 7
 REPLAY_IDS = 4096             # 2048 two-read cycles of the gather oracle
+# phase 8: the golden schedule files; the TINY matrix's designs and
+# configurations come from tests/_torch_sched_util.py
+TESTS_DIR = pathlib.Path(__file__).resolve().parent / "tests"
+GOLDEN_SCHEDULE = TESTS_DIR / "golden_schedule.json"
+GOLDEN_SCHEDULE_FULL = TESTS_DIR / "golden_schedule_full.json"
+SCHEDULE_FIELDS = ("cycles", "issued", "mem_issued", "bank_conflict_stalls",
+                   "parity_fanout_stalls", "write_pair_stalls",
+                   "parity_path_reads", "write_pair_rmws")
+PLAIN_BENCH = "bfs_queue"     # the smallest full trace: kernel vs plain
+SWEEP_BENCH = "paged_kv"      # sweep_batched on the card
 
 
 def check(ok: bool, msg: str) -> None:
@@ -188,14 +214,17 @@ def check_spills(report: "list[dict]", names: "tuple[str, ...]",
               for r in rows), f"a {what} kernel spills registers")
 
 
-def device_events(fn, tries: int = 3
+def device_events(fn, tries: int = 5, expect: "tuple[str, ...]" = ()
                   ) -> "tuple[dict[str, tuple[int, float]], float]":
     """Run ``fn`` once under ``torch.profiler``: the launches and device
     ms of each device kernel (copies and fills included) by name, and
     the host-clock ms of the run.  Now and then the profiler records no
     device activity at all for a short run (one SSD chunk call, once in
-    four smokes on the H100); such a run is profiled again, up to
-    ``tries`` times, and the callers' checks fail if it stays empty."""
+    four smokes on the H100), or only some of its kernels (the SSD
+    chunk's C B^T kernel missing, once in two smokes).  A run with no
+    events, or with no kernel whose name holds one of ``expect``, is
+    profiled again, up to ``tries`` times, and the callers' checks fail
+    if it stays so."""
     from torch.profiler import ProfilerActivity, profile
     for attempt in range(1, tries + 1):
         torch.cuda.synchronize()
@@ -213,16 +242,18 @@ def device_events(fn, tries: int = 3
             us = e.self_cuda_time_total if us is None else us
             n, ms = events.get(e.key, (0, 0.0))
             events[e.key] = (n + e.count, ms + us / 1e3)
-        if events:
+        missing = [x for x in expect if not any(x in k for k in events)]
+        if events and not missing:
             break
-        print(f"profiler: no device events recorded (try {attempt} of "
-              f"{tries})")
+        print(f"profiler: no device events recorded for {missing or 'any'} "
+              f"kernel (try {attempt} of {tries})")
     return events, wall
 
 
-def device_profile(fn) -> "tuple[dict[str, float], float]":
+def device_profile(fn, expect: "tuple[str, ...]" = ()
+                   ) -> "tuple[dict[str, float], float]":
     """Device ms by kernel name of one run of ``fn``, and its host ms."""
-    events, wall = device_events(fn)
+    events, wall = device_events(fn, expect=expect)
     return {k: ms for k, (_, ms) in events.items()}, wall
 
 
@@ -382,6 +413,241 @@ def replay_and_faults(dev: torch.device, gen: torch.Generator,
           f"{peak_gb:.3f} GB allocated")
     del r_table, gathered
     torch.cuda.empty_cache()
+
+
+def schedule_row_matches(res, row: dict) -> bool:
+    """A schedule result equals a golden row: every counter exactly,
+    avg_mem_parallelism within the file's 1e-9."""
+    return (all(getattr(res, f) == row[f] for f in SCHEDULE_FIELDS)
+            and abs(res.avg_mem_parallelism - row["avg_mem_parallelism"])
+            < 1e-9)
+
+
+def schedule_bytes(pt, ins: dict) -> "tuple[int, int]":
+    """The least bytes one ``cycle_lanes`` launch over ``pt`` must move,
+    and the leaf-table share of them.  The trace is read once for every
+    lane: perm, class ids and latencies of the real nodes, their real
+    predecessor edges, and the word and load flag of the memory nodes.
+    Per lane: its descriptor rows and scalars.  The NTX leaf tables only
+    for NTX arrays, one ``direct`` and one ``offset`` entry for each row
+    that the array's words address (parity rows are read only when a
+    read's direct port is busy, so none are counted).  Outputs: the
+    counters of every lane, and the final map of every remap array at its
+    own depth (the other lanes' maps stay zero)."""
+    from repro_torch.core.sim.arbiter import (_NTX_KINDS, F_CONFIGURED,
+                                              F_DEPTH, F_HALF, F_KIND,
+                                              KIND_H_NTX, KIND_REMAP)
+    dv = pt.device_views()
+    n, a_pad = dv.n_real, ins["desc"].shape[1]
+    lanes, depth = ins["desc"].shape[0], ins["direct"].shape[2]
+    preds = ins["preds_pad"][:n]
+    gid = ins["gid_perm"][:n]
+    mem_node = ins["perm"][:n][gid < a_pad]
+    mem_array = gid[gid < a_pad]
+    words = ins["word_idx"][mem_node]
+    n_bytes = (12 * n + 4 * int((preds != dv.n_pad).sum())
+               + 5 * len(mem_node) + ins["seg_start"].nbytes)
+    n_bytes += sum(ins[k].nbytes for k in ("desc", "fu_budgets",
+                                           "mem_latency", "ppb",
+                                           "max_cycles"))
+    n_bytes += 4 * lanes * (2 + 8 + a_pad)
+    rows: "dict[tuple, int]" = {}
+    leaf = 0
+    for d in ins["desc"]:
+        for a in range(a_pad):
+            kind, words_deep = int(d[a, F_KIND]), max(int(d[a, F_DEPTH]), 1)
+            if d[a, F_CONFIGURED] <= 0:
+                continue
+            if kind == KIND_REMAP:
+                n_bytes += 4 * min(words_deep, depth)
+            elif kind in _NTX_KINDS:
+                key = (a, words_deep, int(d[a, F_HALF]), kind == KIND_H_NTX)
+                if key not in rows:
+                    aw = np.mod(words[mem_array == a], words_deep)
+                    half = max(key[2], 0)
+                    tree = 0 if key[3] else (aw >= half)
+                    ta = np.minimum(aw - tree * half, depth - 1)
+                    rows[key] = len(np.unique(ta))
+                leaf += 8 * rows[key]
+    return n_bytes + leaf, leaf
+
+
+def timing_backend(dev: torch.device) -> dict:
+    """Phase 8: the batched timing backend.  (a) the TINY golden rows on
+    the card, one launch a benchmark; (b) the full-size DSE matrix (the
+    path: every benchmark's 80 design lanes in one ``schedule_batched``
+    launch), equal to tests/golden_schedule_full.json; (c) kernel against
+    plain at full width on bfs_queue, events and maps included; (d)
+    ``sweep_batched`` on the card against the golden rows folded through
+    ``point_from_schedule``; (e) no spill.  Returns the kernel's entry of
+    the ``kernels`` line."""
+    from repro_torch.core.bench import BENCHMARKS, get_trace
+    from repro_torch.core.dse import pareto_front, sweep_batched
+    from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
+                                            point_from_schedule,
+                                            schedule_config_for)
+    from repro_torch.core.sim import ScheduleResult, prepare_trace
+    from repro_torch.core.sim.batched_cycle import (_lane_inputs,
+                                                    schedule_batched)
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.cycle_lanes import cycle_lanes
+
+    # (a) the 390 TINY golden rows
+    sys.path.insert(0, str(TESTS_DIR))
+    from _torch_sched_util import golden_configs
+    golden = json.loads(GOLDEN_SCHEDULE.read_text())
+    t0 = time.perf_counter()
+    for bench in BENCHMARKS:
+        pt, rows, cfgs = golden_configs(bench)
+        for g, res in zip(rows, schedule_batched(pt, cfgs, device=dev)):
+            check(schedule_row_matches(res, g),
+                  f"TINY golden row {g} on the card: {res}")
+    print(f"schedule (a): the {len(golden)} TINY rows of "
+          f"tests/golden_schedule.json equal on the card, one launch a "
+          f"benchmark ({time.perf_counter() - t0:.1f} s with the traces)")
+
+    # (b) the path: the full-size matrix, one launch a benchmark
+    full = json.loads(GOLDEN_SCHEDULE_FULL.read_text())
+    grid = [(dp, u) for dp in DEFAULT_DESIGNS for u in DEFAULT_UNROLLS]
+    prepared, configs = {}, {}
+    t0 = time.perf_counter()
+    for bench in BENCHMARKS:
+        pt = prepared[bench] = prepare_trace(get_trace(bench, full=True))
+        configs[bench] = [schedule_config_for(pt, dp, u) for dp, u in grid]
+    prep_s = time.perf_counter() - t0
+    # the kernel's device time: CUDA events around the wrapper's call
+    spans = []
+    wrapper = ops.cycle_lanes
+
+    def timed_cycle_lanes(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = wrapper(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    results, wall = {}, {}
+    torch.cuda.synchronize()
+    cycle_lanes.launches = 0
+    ops.cycle_lanes = timed_cycle_lanes
+    try:
+        for bench in BENCHMARKS:
+            t0 = time.perf_counter()
+            results[bench] = schedule_batched(prepared[bench],
+                                              configs[bench], device=dev)
+            wall[bench] = time.perf_counter() - t0
+    finally:
+        ops.cycle_lanes = wrapper
+    torch.cuda.synchronize()
+    path_launches = cycle_lanes.launches
+    check(path_launches == len(BENCHMARKS) == len(spans),
+          f"cycle_lanes launched {path_launches} times for "
+          f"{len(BENCHMARKS)} benchmarks")
+    kernel_ms = {}
+    n_bytes = leaf_bytes = 0
+    for (bench, res), (start, end) in zip(results.items(), spans):
+        rows = [g for g in full if g["bench"] == bench]
+        check(len(rows) == len(res) == len(grid),
+              f"{bench}: {len(res)} results for {len(rows)} golden rows")
+        for (dp, u), g, r in zip(grid, rows, res):
+            check((g["design"], g["unroll"]) == (dp.label, u)
+                  and schedule_row_matches(r, g),
+                  f"full-size golden row {g} on the card: {r}")
+        kernel_ms[bench] = start.elapsed_time(end)
+        most = max(r.cycles for r in res)
+        print(f"schedule (b) {bench}: {prepared[bench].n_nodes} nodes, "
+              f"{len(res)} lanes, kernel {kernel_ms[bench]:.3f} ms, most "
+              f"cycles a lane simulated {most}, "
+              f"{kernel_ms[bench] * 1e6 / most:.1f} ns a simulated cycle, "
+              f"schedule_batched {wall[bench] * 1e3:.1f} ms (host clock)")
+        _, ins = _lane_inputs(prepared[bench], configs[bench])
+        got = schedule_bytes(prepared[bench], ins)
+        n_bytes += got[0]
+        leaf_bytes += got[1]
+    total_ms = sum(kernel_ms.values())
+    b_ms, b_by = bound_ms(n_bytes)
+    print(f"schedule (b): {len(full)} full-size rows of "
+          f"tests/golden_schedule_full.json equal on the card; "
+          f"{path_launches} launches, kernel {total_ms:.3f} ms in all; "
+          f"traces and configs {prep_s:.1f} s (set-up); bound {b_ms:.6f} "
+          f"ms ({b_by}: {n_bytes / 1e6:.3f} MB that the lanes must read "
+          f"or write, {leaf_bytes / 1e6:.3f} MB of it NTX leaf rows; "
+          f"kernel {total_ms / b_ms:.3g}x the bound)")
+
+    # (c) kernel against plain at full width, events and maps included
+    pt, cfgs = prepared[PLAIN_BENCH], configs[PLAIN_BENCH]
+    ops.cycle_lanes = timed_cycle_lanes
+    try:
+        card = schedule_batched(pt, cfgs, device=dev, return_maps=True,
+                                collect_events=True)
+    finally:
+        ops.cycle_lanes = wrapper
+    torch.cuda.synchronize()
+    card_ms = spans[-1][0].elapsed_time(spans[-1][1])
+    t0 = time.perf_counter()
+    plain = schedule_batched(pt, cfgs, device="cpu", return_maps=True,
+                             collect_events=True)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(card[0] == plain[0], f"{PLAIN_BENCH}: kernel results != plain")
+    check(np.array_equal(card[1], plain[1]),
+          f"{PLAIN_BENCH}: kernel remap maps != plain")
+    check(all(a == b for a, b in zip(card[2], plain[2])),
+          f"{PLAIN_BENCH}: kernel event logs != plain")
+    err = max(max(abs(getattr(a, f) - getattr(b, f)) for f in SCHEDULE_FIELDS)
+              for a, b in zip(card[0], plain[0]))
+    print(f"schedule (c) {PLAIN_BENCH} full, {len(cfgs)} lanes with events: "
+          f"kernel == plain (results, {card[1].shape} remap maps, "
+          f"{len(card[2])} event logs); on these inputs the kernel "
+          f"{card_ms:.3f} ms, plain {plain_ms:.1f} ms on the host CPU "
+          f"({plain_ms / card_ms:.0f}x)")
+
+    # (d) sweep_batched on the card against the golden rows, folded
+    pt = prepared[SWEEP_BENCH]
+    points = sweep_batched(pt, device=dev)
+    rows = [g for g in full if g["bench"] == SWEEP_BENCH]
+    want = [point_from_schedule(
+        pt, dp, u, cfg, ScheduleResult(
+            per_array_accesses={},
+            **{k: v for k, v in g.items()
+               if k not in ("bench", "design", "unroll")}))
+        for (dp, u), cfg, g in zip(grid, configs[SWEEP_BENCH], rows)]
+    # the golden file rounds avg_mem_parallelism to 9 places
+    def same_point(a, b) -> bool:
+        ra, rb = a.row(), b.row()
+        return (abs(ra.pop("avg_mem_parallelism")
+                    - rb.pop("avg_mem_parallelism")) < 1e-9 and ra == rb)
+
+    check(len(points) == len(want)
+          and all(same_point(a, b) for a, b in zip(points, want)),
+          f"{SWEEP_BENCH}: sweep_batched points != the golden rows' points")
+    fronts = {}
+    for family, keep in (("all", lambda p: True), ("amm", lambda p: p.is_amm),
+                         ("banked", lambda p: not p.is_amm)):
+        for cost, key in (("area", lambda p: p.area_mm2),
+                          ("power", lambda p: p.power_mw)):
+            got = pareto_front([p for p in points if keep(p)], key)
+            ref = pareto_front([p for p in want if keep(p)], key)
+            check([(p.design, p.unroll) for p in got]
+                  == [(p.design, p.unroll) for p in ref],
+                  f"{SWEEP_BENCH}: {family} {cost} front differs")
+            fronts[f"{family}/{cost}"] = len(got)
+    print(f"schedule (d) sweep_batched {SWEEP_BENCH} on the card: "
+          f"{len(points)} DSEPoints and the Pareto fronts {fronts} equal "
+          "to those of the golden rows")
+
+    # (e) no spill
+    check_spills(_build.ptxas_report("cycle_lanes"), ("cycle_lanes_kernel",),
+                 "cycle_lanes")
+    return {"name": "cycle_lanes", "route": "cuda",
+            "source": "src/repro_torch/csrc/cycle_lanes.cu",
+            "replaces": "src/repro/core/sim/jax_cycle.py:130 (_make_lane_fn; "
+                        "lax.while_loop, not a Pallas kernel)",
+            "launches": path_launches, "max_abs_err": float(err),
+            "ms": total_ms, "kernel_ms": total_ms, "plain_ms": plain_ms,
+            "plain_inputs_ms": card_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def main() -> int:
@@ -571,7 +837,8 @@ def main() -> int:
     tile, split = kernel_split(hd, 2, sb)
     n_splits = nb * (sb // split)
     busy = int(((lens.long() + split - 1) // split).sum().item()) * hkv
-    kv_prof, _ = device_profile(lambda: banked_kv_decode(q, kb, vb, lens))
+    kv_prof, _ = device_profile(lambda: banked_kv_decode(q, kb, vb, lens),
+                                ("kv_split", "kv_combine"))
     split_ms = sum(ms for k, ms in kv_prof.items() if "kv_split" in k)
     combine_ms = sum(ms for k, ms in kv_prof.items() if "kv_combine" in k)
     check(split_ms > 0 and combine_ms > 0,
@@ -735,7 +1002,9 @@ def main() -> int:
           f"{ssd_bound_f32:.4f} ms ({ssd_by_f32}); no single PyTorch call "
           f"computes this function, so library_ms is null")
     tiles = tile_counts(sb, sh, sq, sp, sn, ssd_kernel_tile())
-    ssd_prof, _ = device_profile(lambda: ssd_chunk(*ssd_in))
+    ssd_prof, _ = device_profile(lambda: ssd_chunk(*ssd_in),
+                                 ("ssd_cb_kernel", "ssd_y_kernel",
+                                  "ssd_state_kernel"))
     per_kernel = {k: sum(ms for name, ms in ssd_prof.items() if k in name)
                   for k in ("ssd_cb_kernel", "ssd_y_kernel",
                             "ssd_state_kernel")}
@@ -866,6 +1135,9 @@ def main() -> int:
     # ---- 7. the replay engine and the fault campaigns ---------------
     replay_and_faults(dev, gen, idx[:REPLAY_IDS], vocab, width)
 
+    # ---- 8. the batched timing backend ------------------------------
+    schedule_kernel = timing_backend(dev)
+
     kernels = [{
         "name": "amm_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/amm_gather.cu",
@@ -884,7 +1156,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan.py:58",
         "launches": serve_launches["ssd_scan"], "max_abs_err": ssd_err,
         "ms": ssd_ms, "kernel_ms": ssd_ms, "plain_ms": ssd_plain,
-        "bound_ms": ssd_bound, "bound_by": ssd_by, "library_ms": None}]
+        "bound_ms": ssd_bound, "bound_by": ssd_by, "library_ms": None},
+        schedule_kernel]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,6 +21,13 @@ each design's own redundancy), which fills the DSE points' ``res_*``
 fields.  ``kernels.ref.amm_gather_replay_ref`` runs the gather as a
 replay of the H-NTX-Rd model, the oracle the gather kernel is held to.
 
+And it holds the DSE's timing path: the benchmark traces
+(``core.bench``), their one-time analysis (``core.sim.prepared``), and
+the batched timing backend (``core.sim.batched_cycle``), which
+schedules every design lane of a grid in one launch of the hand-written
+lane-loop kernel (``kernels.cycle_lanes``, one CTA a lane); the sweep
+costs the schedules and reduces them to Pareto fronts (``core.dse``).
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a kernel wrapper given a CPU tensor takes the
 kernel's plain PyTorch version, and given a CUDA tensor launches the

@@ -6,7 +6,8 @@ where *stride* is the difference between consecutive addresses of a
 load/store stream (Weinberg et al., SC'05).  Negative strides count
 with their magnitude; stride 0 (the same address again) is temporal,
 not spatial, locality and contributes nothing, but still counts as a
-transition.  The planner scores its streams with it.
+transition.  The planner scores its streams with it, and
+``trace_locality`` gives each benchmark trace its Fig-5 scalar.
 """
 from __future__ import annotations
 
@@ -28,3 +29,25 @@ def spatial_locality_np(addrs_bytes: np.ndarray) -> float:
     # Normalize by the number of *transitions* (incl. stride-0 ones), so
     # temporally-repeated references dilute spatial locality as in Weinberg.
     return float(total / (a.size - 1))
+
+
+def per_array_locality(addrs_bytes: np.ndarray,
+                       array_ids: np.ndarray) -> dict[int, float]:
+    """L_spatial per logical array, as Aladdin partitions per array."""
+    out: dict[int, float] = {}
+    for aid in np.unique(array_ids):
+        out[int(aid)] = spatial_locality_np(addrs_bytes[array_ids == aid])
+    return out
+
+
+def trace_locality(addrs_bytes: np.ndarray, array_ids: np.ndarray) -> float:
+    """Access-weighted mean of per-array localities (the per-benchmark
+    scalar plotted in the paper's Fig 5)."""
+    ids = np.asarray(array_ids)
+    total, weight = 0.0, 0
+    for aid in np.unique(ids):
+        m = ids == aid
+        n = int(m.sum())
+        total += spatial_locality_np(np.asarray(addrs_bytes)[m]) * n
+        weight += n
+    return total / max(weight, 1)

@@ -1,4 +1,5 @@
-"""Public wrappers around the kernels.
+"""Public wrappers around the kernels (``cycle_lanes``, the batched
+timing backend's lane loop, is its own wrapper: see ``cycle_lanes.py``).
 
 Dispatch is by the tensor's device only: a CUDA tensor launches the
 hand-written kernel (or raises), a CPU tensor runs the kernel's plain
@@ -10,6 +11,7 @@ import torch
 
 from repro_torch.kernels.amm_gather import amm_gather_u32
 from repro_torch.kernels.banked_kv_decode import banked_kv_decode
+from repro_torch.kernels.cycle_lanes import cycle_lanes  # noqa: F401
 from repro_torch.kernels.ssd_scan import ssd_chunk_step
 
 _WORD_FOR = {2: torch.int16, 4: torch.int32}
@@ -64,3 +66,4 @@ def ssd_chunk(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     h_in: [Bt, H, P, N] -> (y [Bt, H, Q, P], h_out [Bt, H, P, N]), f32."""
     return ssd_chunk_step(*(t.contiguous() for t in (x, dt, cum, B, C,
                                                       h_in)))
+

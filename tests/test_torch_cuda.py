@@ -15,7 +15,9 @@ difference: atol 1e-4, rtol 2**-7.  The JAX suite's 4e-2 is looser than
 most outputs at S 1024 and would not tell a broken kernel.  The SSD
 chunk sums in f32 in another order than the plain version: atol 1e-4
 (the reference's SSD tolerance) + rtol 1e-5; with bf16 x both round y
-once to bf16, so y may differ by one bf16 step (rtol 2**-7).
+once to bf16, so y may differ by one bf16 step (rtol 2**-7).  The
+batched timing backend (``cycle_lanes``) is integer: the kernel equals
+its plain version exactly (results, remap maps, event logs).
 """
 import importlib
 import math
@@ -446,3 +448,133 @@ def test_amm_gather_replay_ref_matches_kernel(cuda, dtype, n):
     assert torch.equal(got.view(word), amm_gather(table, idx, n_banks=5
                                                   ).view(word))
     assert torch.equal(got.view(word), table[idx].view(word))
+
+
+# ---- the batched timing backend (cycle_lanes) --------------------------
+# Exact: the schedule is integer, so the kernel and the plain version
+# must agree bit for bit (results, final remap maps, event logs).
+_SCHED_BENCHES = ("fft_strided", "gemm_ncubed", "kmp", "md_knn",
+                  "sort_merge", "stencil2d", "aes", "spmv_crs", "bfs_queue",
+                  "nw", "viterbi", "radix_sort", "kv_decode", "paged_kv",
+                  "moe_route")
+_PLAIN_SCHEDULES: dict = {}
+
+
+def _plain_schedule(bench):
+    """The plain version's results, maps and events for a benchmark's
+    golden rows (computed once a session: it is the slow side)."""
+    from _torch_sched_util import golden_configs
+    from repro_torch.core.sim.batched_cycle import schedule_batched
+
+    if bench not in _PLAIN_SCHEDULES:
+        pt, rows, cfgs = golden_configs(bench)
+        _PLAIN_SCHEDULES[bench] = schedule_batched(
+            pt, cfgs, device="cpu", return_maps=True, collect_events=True)
+    return _PLAIN_SCHEDULES[bench]
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("bench", _SCHED_BENCHES)
+def test_cycle_lanes_matches_plain_on_golden_rows(cuda, bench, record):
+    from _torch_sched_util import check_row, golden_configs
+    from repro_torch.core.sim.batched_cycle import schedule_batched
+    from repro_torch.kernels.cycle_lanes import cycle_lanes
+
+    pt, rows, cfgs = golden_configs(bench)
+    launches = cycle_lanes.launches
+    got = schedule_batched(pt, cfgs, device=cuda, return_maps=True,
+                           collect_events=record)
+    torch.cuda.synchronize()
+    assert cycle_lanes.launches == launches + 1     # one launch a call
+    want = _plain_schedule(bench)
+    assert got[0] == want[0]
+    np.testing.assert_array_equal(got[1], want[1])
+    if record:
+        assert got[2] == want[2]
+    for g, res in zip(rows, got[0]):
+        check_row(res, g)
+
+
+def test_cycle_lanes_lanes_of_different_lengths_and_a_batch_of_one(cuda):
+    from repro_torch.core.amm.spec import AMMSpec
+    from repro_torch.core.sim import ScheduleConfig, TraceBuilder
+    from repro_torch.core.sim.batched_cycle import schedule_batched
+
+    tb = TraceBuilder("chain")
+    aids = [tb.declare_array(f"a{k}", 4) for k in range(2)]
+    prev = ()
+    for i in range(300):
+        prev = (tb.load(aids[i % 2], i % 16, prev),)
+    tr = tb.build()
+    cfgs = [ScheduleConfig(mem={0: AMMSpec("ideal", 4, 4, 64),
+                                1: AMMSpec(k, 2, 2, 64)}, fu_counts={},
+                           mem_latency=lat)
+            for k, lat in (("ideal", 1), ("banked", 9), ("remap", 3),
+                           ("hb_ntx", 2), ("lvt", 5))]
+    got, maps, logs = schedule_batched(tr, cfgs, device=cuda,
+                                       return_maps=True, collect_events=True)
+    want = schedule_batched(tr, cfgs, device="cpu", return_maps=True,
+                            collect_events=True)
+    assert len({r.cycles for r in got}) == len(cfgs)
+    assert got == want[0] and logs == want[2]
+    np.testing.assert_array_equal(maps, want[1])
+    for cfg, res in zip(cfgs, got):
+        assert schedule_batched(tr, [cfg], device=cuda) == [res]
+
+
+def test_cycle_lanes_error_codes(cuda):
+    from repro_torch.core.amm.spec import AMMSpec
+    from repro_torch.core.sim import ScheduleConfig, Trace, TraceBuilder
+    from repro_torch.core.sim.batched_cycle import schedule_batched
+    from repro_torch.core.sim.trace import IADD
+
+    tb = TraceBuilder("nospec")
+    a = tb.declare_array("a", 4)
+    b = tb.declare_array("b", 4)
+    tb.load(a, 0)
+    tb.load(b, 0)
+    cfg = ScheduleConfig(mem={a: AMMSpec("ideal", 2, 2, 64)}, fu_counts={})
+    with pytest.raises(KeyError):
+        schedule_batched(tb.build(), [cfg], device=cuda)
+    tb = TraceBuilder("chain")
+    a = tb.declare_array("a", 4)
+    prev = ()
+    for i in range(64):
+        prev = (tb.load(a, i % 16, prev),)
+    cfg = ScheduleConfig(mem={a: AMMSpec("ideal", 1, 1, 64)}, fu_counts={},
+                         max_cycles=5)
+    with pytest.raises(RuntimeError, match="exceeded 5 cycles"):
+        schedule_batched(tb.build(), [cfg], device=cuda)
+    tr = Trace(kinds=np.array([IADD, IADD, 0], np.int8),
+               array_ids=np.array([-1, -1, 0], np.int16),
+               addrs=np.array([-1, -1, 0], np.int64),
+               pred_ptr=np.array([0, 1, 2, 2], np.int64),
+               pred_idx=np.array([1, 0], np.int64),
+               array_names={0: "a"}, word_bytes={0: 4}, name="cycle")
+    cfg = ScheduleConfig(mem={0: AMMSpec("ideal", 2, 2, 64)}, fu_counts={})
+    with pytest.raises(RuntimeError, match="deadlock"):
+        schedule_batched(tr, [cfg], device=cuda)
+
+
+def test_cycle_lanes_rejects_what_it_does_not_take(cuda):
+    """A layout beyond the card's shared memory is refused at launch
+    (the wrapper raises); a CPU tensor mixed with CUDA ones is refused."""
+    from _torch_sched_util import golden_configs
+    from repro_torch.core.sim.batched_cycle import _lane_inputs
+    from repro_torch.kernels.cycle_lanes import cycle_lanes
+
+    pt, _, cfgs = golden_configs("paged_kv")
+    sc, ins = _lane_inputs(pt, cfgs[:2])
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in ins.items()}
+    args = (t["desc"], t["fu_budgets"], t["mem_latency"], t["ppb"],
+            t["max_cycles"], t["direct"], t["offset"], t["parity"],
+            pt.device_views().n_real, t["preds_pad"], t["lat"],
+            t["is_load"], t["word_idx"], t["perm"], t["gid_perm"],
+            t["seg_start"])
+    with pytest.raises(RuntimeError, match="cycle_lanes launch failed"):
+        cycle_lanes(*args, scan_slots=1 << 16, key_space=sc.key_space,
+                    bank_slots=sc.bank_slots)
+    with pytest.raises(ValueError):
+        cycle_lanes(*args[:9], args[9].cpu(), *args[10:],
+                    scan_slots=sc.scan_slots, key_space=sc.key_space,
+                    bank_slots=sc.bank_slots)

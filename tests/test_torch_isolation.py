@@ -76,3 +76,16 @@ def test_no_try_on_the_kernel_path(sub):
         tree = ast.parse(path.read_text())
         tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
         assert not tries, f"{path.relative_to(ROOT)} has try at {tries}"
+
+
+def test_the_timing_backend_modules_are_scanned():
+    """The batched timing backend's modules are among the files the
+    import scan reads and the ``try`` scan walks."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    for name in ("core/sim/batched_cycle.py", "core/sim/prepared.py",
+                 "core/sim/arbiter.py", "core/sim/trace.py",
+                 "core/bench/__init__.py", "core/bench/aes.py",
+                 "core/dse/sweep.py", "core/dse/pareto.py",
+                 "kernels/cycle_lanes.py"):
+        assert name in files, name

@@ -369,7 +369,11 @@ def test_ptxas_report_reads_registers_and_spills(tmp_path, monkeypatch):
 def test_every_kernel_has_a_source_and_a_keyed_library(name):
     src = _build.CSRC / f"{name}.cu"
     text = src.read_text()
-    assert "Replaces: src/repro/kernels/" in text
+    if name == "cycle_lanes":       # replaces a lax.while_loop, not Pallas
+        assert "Replaces: src/repro/core/sim/jax_cycle.py:130 " \
+            "_make_lane_fn" in text
+    else:
+        assert "Replaces: src/repro/kernels/" in text
     assert "What bounds it on this card" in text
     assert 'extern "C"' in text and "cudaGetLastError()" in text
     path = _build.library_path(name)
