@@ -64,16 +64,24 @@ fails:
    banks) and to ``table[idx]``, with its time and launches;
 8. the batched timing backend (``cycle_lanes``, one CTA a design lane):
    (a) the 390 TINY rows of ``tests/golden_schedule.json``, one launch a
-   benchmark, equal row for row; (b) the path: the full-size DSE matrix,
-   15 benchmarks x 20 designs x unrolls 1, 2, 4, 8 through
-   ``schedule_batched``, one launch of 80 lanes a benchmark, equal to
-   ``tests/golden_schedule_full.json`` row for row, with each launch's
-   device time (CUDA events around the wrapper), the most cycles a lane
-   simulated and the time a simulated cycle; (c) on bfs_queue at full
+   benchmark, equal row for row, and their event logs legal under the
+   port's legality checker (``core/verify``: 0 violations); (b) the
+   path: the full-size DSE matrix, 15 benchmarks x 20 designs x unrolls
+   1, 2, 4, 8 through ``schedule_batched``, one launch of 80 lanes a
+   benchmark, equal to ``tests/golden_schedule_full.json`` row for row,
+   with each launch's device time (CUDA events around the wrapper), the
+   most cycles a lane simulated and the time a simulated cycle; the
+   byte bound and the serial floor (the most cycles of each launch times
+   the card's time for one barrier of a 512-thread CTA, measured here);
+   then, for each benchmark, the profiling instantiation's split of its
+   slowest lane's SM clocks over the kernel's phases (retire, rank, FU
+   issue and candidates, deferral scan, clock); (c) on bfs_queue at full
    size, the kernel equal to its plain version on the host CPU in
    results, remap maps and event logs, with the plain version's time
    and the kernel's on the same inputs (``plain_inputs_ms`` in the
-   ``kernels`` line: ``ms`` is the whole matrix of (b));
+   ``kernels`` line: ``ms`` is the whole matrix of (b)), its 80 event
+   logs legal, and sort_merge's 80 lanes recorded on the card, equal to
+   their golden rows, their event logs legal;
    (d) ``sweep_batched`` on the card for paged_kv: its ``DSEPoint``s and
    Pareto fronts equal to those of the golden rows through
    ``point_from_schedule``; (e) the kernels' ``-Xptxas -v`` lines, which
@@ -148,6 +156,9 @@ SCHEDULE_FIELDS = ("cycles", "issued", "mem_issued", "bank_conflict_stalls",
                    "parity_path_reads", "write_pair_rmws")
 PLAIN_BENCH = "bfs_queue"     # the smallest full trace: kernel vs plain
 SWEEP_BENCH = "paged_kv"      # sweep_batched on the card
+CHECK_BENCH = "sort_merge"    # the largest full trace: its logs checked
+PHASES = ("retire", "rank", "FU issue + candidates", "deferral scan",
+          "clock")              # cycle_lanes' profiled phases
 
 
 def check(ok: bool, msg: str) -> None:
@@ -472,6 +483,37 @@ def schedule_bytes(pt, ins: dict) -> "tuple[int, int]":
     return n_bytes + leaf, leaf
 
 
+def legal_logs(pt, cfgs, results, logs, what: str) -> float:
+    """Check every event log with the port's legality checker
+    (``core/verify``: the paper's arbitration rules re-derived from the
+    specs, and the static cycle bounds); fail on any violation.  Returns
+    the seconds the check took."""
+    from repro_torch.core.verify import verify_result
+    t0 = time.perf_counter()
+    for lane, (cfg, res, ev) in enumerate(zip(cfgs, results, logs)):
+        rep = verify_result(pt, cfg, res, ev, backend="cuda")
+        check(rep.ok, f"{what} lane {lane}: {len(rep.violations)} "
+              f"violations, first {rep.violations[:3]}")
+    return time.perf_counter() - t0
+
+
+def lane_profile(pt, cfgs, dev: torch.device) -> dict:
+    """One launch of ``cycle_lanes``' profiling instantiation over
+    ``cfgs``: the lane with the most profiled SM clocks (the one that
+    sets the launch's time), its cycles, the cycles it visited, its
+    clocks a visited cycle and each phase's share of them."""
+    from repro_torch.core.sim.batched_cycle import _lane_inputs, lane_outputs
+    sc, ins = _lane_inputs(pt, cfgs)
+    out = lane_outputs(pt, sc, ins, dev, profile=True)
+    cycles, prof = out[0].cpu().numpy(), out[-1].cpu().numpy()
+    lane = int(np.argmax(prof[:, :len(PHASES)].sum(1)))
+    clocks = prof[lane, :len(PHASES)]
+    return {"lane": lane, "cycles": int(cycles[lane]),
+            "visited": int(prof[lane, len(PHASES)]),
+            "clocks_per_visit": float(clocks.sum() / prof[lane, -1]),
+            "shares": [float(c / clocks.sum()) for c in clocks]}
+
+
 def timing_backend(dev: torch.device) -> dict:
     """Phase 8: the batched timing backend.  (a) the TINY golden rows on
     the card, one launch a benchmark; (b) the full-size DSE matrix (the
@@ -490,21 +532,27 @@ def timing_backend(dev: torch.device) -> dict:
     from repro_torch.core.sim.batched_cycle import (_lane_inputs,
                                                     schedule_batched)
     from repro_torch.kernels import _build, ops
-    from repro_torch.kernels.cycle_lanes import cycle_lanes
+    from repro_torch.kernels.cycle_lanes import barrier_ms, cycle_lanes
 
-    # (a) the 390 TINY golden rows
+    # (a) the 390 TINY golden rows, their event logs checked
     sys.path.insert(0, str(TESTS_DIR))
     from _torch_sched_util import golden_configs
     golden = json.loads(GOLDEN_SCHEDULE.read_text())
     t0 = time.perf_counter()
+    check_s = 0.0
     for bench in BENCHMARKS:
         pt, rows, cfgs = golden_configs(bench)
-        for g, res in zip(rows, schedule_batched(pt, cfgs, device=dev)):
+        results, logs = schedule_batched(pt, cfgs, device=dev,
+                                         collect_events=True)
+        for g, res in zip(rows, results):
             check(schedule_row_matches(res, g),
                   f"TINY golden row {g} on the card: {res}")
+        check_s += legal_logs(pt, cfgs, results, logs, f"TINY {bench}")
     print(f"schedule (a): the {len(golden)} TINY rows of "
           f"tests/golden_schedule.json equal on the card, one launch a "
-          f"benchmark ({time.perf_counter() - t0:.1f} s with the traces)")
+          f"benchmark, and their {len(golden)} event logs legal: 0 "
+          f"violations (core/verify; {check_s:.1f} s of "
+          f"{time.perf_counter() - t0:.1f} s)")
 
     # (b) the path: the full-size matrix, one launch a benchmark
     full = json.loads(GOLDEN_SCHEDULE_FULL.read_text())
@@ -545,7 +593,7 @@ def timing_backend(dev: torch.device) -> dict:
     check(path_launches == len(BENCHMARKS) == len(spans),
           f"cycle_lanes launched {path_launches} times for "
           f"{len(BENCHMARKS)} benchmarks")
-    kernel_ms = {}
+    kernel_ms, most_cycles = {}, {}
     n_bytes = leaf_bytes = 0
     for (bench, res), (start, end) in zip(results.items(), spans):
         rows = [g for g in full if g["bench"] == bench]
@@ -556,7 +604,7 @@ def timing_backend(dev: torch.device) -> dict:
                   and schedule_row_matches(r, g),
                   f"full-size golden row {g} on the card: {r}")
         kernel_ms[bench] = start.elapsed_time(end)
-        most = max(r.cycles for r in res)
+        most = most_cycles[bench] = max(r.cycles for r in res)
         print(f"schedule (b) {bench}: {prepared[bench].n_nodes} nodes, "
               f"{len(res)} lanes, kernel {kernel_ms[bench]:.3f} ms, most "
               f"cycles a lane simulated {most}, "
@@ -568,13 +616,34 @@ def timing_backend(dev: torch.device) -> dict:
         leaf_bytes += got[1]
     total_ms = sum(kernel_ms.values())
     b_ms, b_by = bound_ms(n_bytes)
+    # the serial floor: a lane's simulated cycles are a chain, and a
+    # cycle of a CTA-wide lane costs at least one block barrier
+    bar_ms, bar_clocks = barrier_ms(dev)
+    floor_ms = bar_ms * sum(most_cycles.values())
     print(f"schedule (b): {len(full)} full-size rows of "
           f"tests/golden_schedule_full.json equal on the card; "
           f"{path_launches} launches, kernel {total_ms:.3f} ms in all; "
           f"traces and configs {prep_s:.1f} s (set-up); bound {b_ms:.6f} "
           f"ms ({b_by}: {n_bytes / 1e6:.3f} MB that the lanes must read "
           f"or write, {leaf_bytes / 1e6:.3f} MB of it NTX leaf rows; "
-          f"kernel {total_ms / b_ms:.3g}x the bound)")
+          f"kernel {total_ms / b_ms:.3g}x the bound); serial floor "
+          f"{floor_ms:.3f} ms (the most cycles of each launch x "
+          f"{bar_ms * 1e6:.2f} ns, {bar_clocks:.1f} SM clocks, for one "
+          f"barrier of a 512-thread CTA; kernel "
+          f"{total_ms / floor_ms:.3g}x the floor), so the "
+          f"{'serial floor' if floor_ms > b_ms else 'byte bound'} bounds "
+          f"it")
+    # where the slowest lane of each launch spends its cycles: the
+    # profiling instantiation, launched outside the path's count
+    for bench in BENCHMARKS:
+        split = lane_profile(prepared[bench], configs[bench], dev)
+        dp, u = grid[split["lane"]]
+        print(f"schedule (b) profile {bench}: slowest lane {split['lane']} "
+              f"({dp.label} u{u}), {split['cycles']} cycles, "
+              f"{split['visited']} visited, {split['clocks_per_visit']:.0f} "
+              "SM clocks a visited cycle: "
+              + ", ".join(f"{name} {share:.1%}" for name, share in
+                          zip(PHASES, split["shares"])))
 
     # (c) kernel against plain at full width, events and maps included
     pt, cfgs = prepared[PLAIN_BENCH], configs[PLAIN_BENCH]
@@ -597,11 +666,24 @@ def timing_backend(dev: torch.device) -> dict:
           f"{PLAIN_BENCH}: kernel event logs != plain")
     err = max(max(abs(getattr(a, f) - getattr(b, f)) for f in SCHEDULE_FIELDS)
               for a, b in zip(card[0], plain[0]))
+    check_s = legal_logs(pt, cfgs, card[0], card[2], PLAIN_BENCH)
     print(f"schedule (c) {PLAIN_BENCH} full, {len(cfgs)} lanes with events: "
           f"kernel == plain (results, {card[1].shape} remap maps, "
-          f"{len(card[2])} event logs); on these inputs the kernel "
-          f"{card_ms:.3f} ms, plain {plain_ms:.1f} ms on the host CPU "
+          f"{len(card[2])} event logs, legal: 0 violations, checked in "
+          f"{check_s:.1f} s); on these inputs the kernel {card_ms:.3f} ms, "
+          f"plain {plain_ms:.1f} ms on the host CPU "
           f"({plain_ms / card_ms:.0f}x)")
+    pt, cfgs = prepared[CHECK_BENCH], configs[CHECK_BENCH]
+    results, logs = schedule_batched(pt, cfgs, device=dev,
+                                     collect_events=True)
+    check(all(schedule_row_matches(r, g) for r, g in zip(
+        results, [g for g in full if g["bench"] == CHECK_BENCH])),
+        f"{CHECK_BENCH}: recording run != the golden rows")
+    check_s = legal_logs(pt, cfgs, results, logs, CHECK_BENCH)
+    print(f"schedule (c) {CHECK_BENCH} full, {len(cfgs)} lanes with events: "
+          f"equal to the golden rows; {len(logs)} event logs of "
+          f"{pt.n_nodes} nodes legal: 0 violations (checked in "
+          f"{check_s:.1f} s on the host CPU)")
 
     # (d) sweep_batched on the card against the golden rows, folded
     pt = prepared[SWEEP_BENCH]
@@ -647,7 +729,8 @@ def timing_backend(dev: torch.device) -> dict:
             "launches": path_launches, "max_abs_err": float(err),
             "ms": total_ms, "kernel_ms": total_ms, "plain_ms": plain_ms,
             "plain_inputs_ms": card_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+            "bound_ms": b_ms, "bound_by": b_by, "serial_floor_ms": floor_ms,
+            "library_ms": None}
 
 
 def main() -> int:

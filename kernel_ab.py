@@ -1,5 +1,5 @@
-"""Time the gather and SSD kernels of this checkout against another
-checkout's, with one timer, in one run on the card.
+"""Time the gather, SSD and timing-backend kernels of this checkout
+against another checkout's, with one timer, in one run on the card.
 
     python3 kernel_ab.py OTHER      # OTHER: e.g. a git archive of the parent
 
@@ -9,8 +9,11 @@ own kernels under its own ``build/``).  Every run times
 ``amm_gather_u32`` and ``ssd_chunk`` at ``chip_smoke.py``'s shapes with
 ``chip_smoke.py``'s own ``time_ms`` (median of device time between CUDA
 events, the card spun first) and ``device_profile`` (device time of one
-call), both taken from this checkout, so the two sides share one
-timer.
+call), and ``cycle_lanes`` on the full-size DSE matrix's lanes of
+``SCHEDULE_BENCHES`` (one ``schedule_batched`` call of 80 lanes each,
+its launch fenced by CUDA events as ``chip_smoke.py`` phase 8b fences
+it; the median of three calls), all with this checkout's timers, so the
+two sides share one timer.
 
 Prints the card's name and power limit, one JSON line a run, and last
 the medians by side.  Exits non-zero without a card.
@@ -27,6 +30,56 @@ import sys
 import torch
 
 HERE = pathlib.Path(__file__).resolve().parent
+# the timing backend's launches: the two slowest under the first design
+# and two whose lanes jump idle cycles
+SCHEDULE_BENCHES = ("sort_merge", "stencil2d", "kmp", "md_knn")
+
+
+def schedule_ms(bench: str, dev: torch.device, reps: int = 3) -> float:
+    """Median device ms of the one ``cycle_lanes`` launch that schedules
+    ``bench``'s full-size DSE matrix (80 lanes), over ``reps`` calls of
+    ``schedule_batched``, each checked against
+    ``tests/golden_schedule_full.json``."""
+    import chip_smoke as smoke
+    from repro_torch.core.bench import get_trace
+    from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS,
+                                            DEFAULT_UNROLLS,
+                                            schedule_config_for)
+    from repro_torch.core.sim import prepare_trace
+    from repro_torch.core.sim.batched_cycle import schedule_batched
+    from repro_torch.kernels import ops
+
+    pt = prepare_trace(get_trace(bench, full=True))
+    cfgs = [schedule_config_for(pt, dp, u) for dp in DEFAULT_DESIGNS
+            for u in DEFAULT_UNROLLS]
+    spans, wrapper = [], ops.cycle_lanes
+
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = wrapper(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+
+    rows = [g for g in json.loads(smoke.GOLDEN_SCHEDULE_FULL.read_text())
+            if g["bench"] == bench]
+    ops.cycle_lanes = timed
+    try:
+        for _ in range(reps):
+            results = schedule_batched(pt, cfgs, device=dev)
+            if not all(smoke.schedule_row_matches(r, g)
+                       for r, g in zip(results, rows)):
+                raise RuntimeError(f"cycle_lanes on {bench} != the golden "
+                                   "rows")
+    finally:
+        ops.cycle_lanes = wrapper
+    torch.cuda.synchronize()
+    if len(spans) != reps:
+        raise RuntimeError(f"{len(spans)} cycle_lanes launches for {reps} "
+                           "calls")
+    return statistics.median(s.elapsed_time(e) for s, e in spans)
 
 
 def worker(tree: pathlib.Path) -> dict:
@@ -81,6 +134,10 @@ def worker(tree: pathlib.Path) -> dict:
     res["ssd_ms"] = smoke.time_ms(lambda: ssd_chunk(*ins))
     prof, _ = smoke.device_profile(lambda: ssd_chunk(*ins))
     res["ssd_profiled_ms"] = sum(ms for k, ms in prof.items() if "ssd_" in k)
+    del ins
+    torch.cuda.empty_cache()
+    for bench in SCHEDULE_BENCHES:
+        res[f"cycle_lanes_{bench}_ms"] = schedule_ms(bench, dev)
     return res
 
 

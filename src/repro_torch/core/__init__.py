@@ -11,6 +11,8 @@ the locality metric.
   sweep on the batched timing backend and its Pareto fronts
 - ``repro_torch.core.sim``      — traces, their prepared analysis and the
   batched timing backend (the cycle-accurate list scheduler)
+- ``repro_torch.core.verify``   — the independent legality checker of
+  the backend's event logs
 - ``repro_torch.core.bench``    — the 15 benchmark traces
 - ``repro_torch.core.cost``     — CACTI-like SRAM + logic cost models
 - ``repro_torch.core.locality`` — Weinberg spatial-locality metric

@@ -26,18 +26,19 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.core.sim.arbiter import (N_FIELDS, STALL_KEYS,
-                                          compile_descriptors,
+from repro_torch.core.sim.arbiter import (F_RD, F_WR, N_FIELDS,
+                                          STALL_KEYS, compile_descriptors,
                                           descriptor_device_tables,
                                           descriptor_matrix, device_limits)
 from repro_torch.core.sim.events import EventLog
-from repro_torch.core.sim.prepared import FU_ORDER, _next_pow2, prepare_trace
+from repro_torch.core.sim.prepared import (FU_ORDER, _flatten_ranges,
+                                           _next_pow2, prepare_trace)
 from repro_torch.core.sim.scheduler import ScheduleConfig, ScheduleResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.cycle_lanes import (ERR_DEADLOCK, ERR_MAX_CYCLES,
-                                             ERR_UNCONFIGURED, INT32_INF,
-                                             _steer)
+                                             ERR_UNCONFIGURED, ERR_WHEEL,
+                                             INT32_INF, _steer)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +53,9 @@ class StaticCfg:
     bank_slots: int             # NB: bank-usage counters per array
     table_depth: int            # D: per-word state (NTX tables, remap map)
     parity_paths: int           # PP: widest NTX parity fan-out
+    pend_bits: int              # bits of one pending count (8, 16 or 32)
+    wheel_slots: int            # W: finish-wheel buckets (pow 2 > latency)
+    wheel_depth: int            # positions one bucket can hold
 
 
 def _bucket_limits(limits: "Sequence[tuple]"
@@ -89,15 +93,14 @@ def remap_write_step(live_map, ruse, wuse, addr: int, n_banks: int,
 
 
 def _lane_inputs(pt, cfgs) -> "tuple[StaticCfg, dict]":
-    """The reference's per-lane numpy inputs for ``cfgs`` over ``pt``."""
+    """The reference's per-lane numpy inputs for ``cfgs`` over ``pt``,
+    and the kernel's position-space view of the trace
+    (:func:`_kernel_layout`)."""
     dv = pt.device_views()
     all_descs = [compile_descriptors(c.mem, pt.n_arrays, c.ports_per_bank)
                  for c in cfgs]
     S, U, NB, D, PP = _bucket_limits([device_limits(d) for d in all_descs])
     A = dv.a_pad
-    sc = StaticCfg(n_pad=dv.n_pad, n_preds_max=dv.n_preds_max, a_pad=A,
-                   scan_slots=S, key_space=U, bank_slots=NB, table_depth=D,
-                   parity_paths=PP)
     B = len(cfgs)
     ins = {"desc": np.zeros((B, A, N_FIELDS), np.int32),
            "fu_budgets": np.zeros((B, len(FU_ORDER)), np.int32),
@@ -120,7 +123,111 @@ def _lane_inputs(pt, cfgs) -> "tuple[StaticCfg, dict]":
     for name in ("preds_pad", "lat", "is_load", "word_idx", "perm",
                  "gid_perm", "seg_start"):
         ins[name] = getattr(dv, name)
+    pend_bits, wheel_slots, wheel_depth = _kernel_layout(pt, ins)
+    sc = StaticCfg(n_pad=dv.n_pad, n_preds_max=dv.n_preds_max, a_pad=A,
+                   scan_slots=S, key_space=U, bank_slots=NB, table_depth=D,
+                   parity_paths=PP, pend_bits=pend_bits,
+                   wheel_slots=wheel_slots, wheel_depth=wheel_depth)
     return sc, ins
+
+
+def _pack_pending(indeg: np.ndarray) -> "tuple[int, np.ndarray]":
+    """Pending-count seeds packed little-endian into int32 words, in the
+    narrowest of 8, 16 or 32 bits a count that holds the largest; at
+    least one word."""
+    top = int(indeg.max()) if indeg.size else 0
+    bits = 8 if top < 2**8 else 16 if top < 2**16 else 32
+    per_word = 32 // bits
+    packed = np.zeros(max(1, -(-indeg.size // per_word)) * per_word,
+                      f"<u{bits // 8}")
+    packed[:indeg.size] = indeg
+    return bits, packed.view("<i4")
+
+
+def _kernel_layout(pt, ins: dict) -> "tuple[int, int, int]":
+    """The trace relabelled by priority position for the kernel, added to
+    ``ins``, and its static sizes ``(pend_bits, wheel_slots,
+    wheel_depth)``.
+
+    Position ``i`` is ``perm[i]``'s place in the class-grouped priority
+    order.  ``succ_ptr``/``succ_pos`` are the successor CSR by position
+    (row ``i`` lists the positions of ``perm[i]``'s successors, in
+    ``PreparedTrace.succ_idx`` order); ``x_pos`` is ``lat << 1 |
+    is_load`` and ``word_pos`` the memory word of each position;
+    ``pend0`` the in-degree of each position packed little-endian into
+    int32 words, ``pend_bits`` (8, 16 or 32) bits a count, the narrowest
+    that holds the largest in-degree.
+
+    The finish wheel: ``wheel_slots`` is the least power of two above
+    the batch's largest latency (an FU or store node's ``lat``, a load's
+    lane ``mem_latency``), so the in-flight finishes, which span at most
+    that latency, fall in distinct buckets.  ``wheel_depth`` bounds the
+    positions that share one finish: a class issues at most its budget
+    (FU) or its read and write ports (array) a cycle, and a finish ``f``
+    takes a class's nodes of latency ``l`` only from cycle ``f - l``; so
+    a lane needs the sum over classes of that per-cycle cap times the
+    class's distinct latencies, and no more than the trace's nodes."""
+    dv = pt.device_views()
+    n, A = dv.n_real, dv.a_pad
+    perm = dv.perm[:n].astype(np.int64)
+    pos = np.empty(n, np.int64)
+    pos[perm] = np.arange(n, dtype=np.int64)
+    deg = (pt.succ_ptr[1:] - pt.succ_ptr[:-1]).astype(np.int64)
+    succ_ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(deg[perm], out=succ_ptr[1:])
+    edges = _flatten_ranges(pt.succ_ptr[perm], pt.succ_ptr[perm + 1])
+    succ_pos = pos[pt.succ_idx[edges].astype(np.int64)]
+    ins["succ_ptr"] = succ_ptr.astype(np.int32)
+    ins["succ_pos"] = (succ_pos if succ_pos.size else
+                       np.zeros(1, np.int64)).astype(np.int32)
+
+    pend_bits, ins["pend0"] = _pack_pending(pt.indegree[perm])
+
+    lat = dv.lat[perm].astype(np.int64)
+    ld = dv.is_load[perm]
+    ins["x_pos"] = ((lat << 1) | ld).astype(np.int32)
+    ins["word_pos"] = dv.word_idx[perm].astype(np.int32)
+
+    top_lat = max(int(lat[~ld].max()) if (~ld).any() else 0,
+                  int(ins["mem_latency"].max()) if ld.any() else 0)
+    wheel_slots = _next_pow2(top_lat + 1)
+    gid = dv.gid_perm[:n]
+    cap = np.zeros(len(ins["desc"]), np.int64)
+    for g in range(A + len(FU_ORDER)):
+        sel = gid == g
+        if not sel.any():
+            continue
+        if g >= A:
+            n_lat = np.unique(lat[sel]).size
+            cap += np.minimum(np.maximum(ins["fu_budgets"][:, g - A], 0),
+                              int(sel.sum())) * n_lat
+            continue
+        loads, stores = sel & ld, sel & ~ld
+        rd = np.maximum(ins["desc"][:, g, F_RD], 0)
+        wr = np.maximum(ins["desc"][:, g, F_WR], 0)
+        cap += np.minimum(rd, int(loads.sum()))
+        cap += np.minimum(wr, int(stores.sum())) * np.unique(
+            lat[stores]).size
+    wheel_depth = max(1, min(n, int(cap.max())))
+    return pend_bits, wheel_slots, wheel_depth
+
+
+def lane_outputs(pt, sc: StaticCfg, ins: dict, device, *,
+                 record: bool = False, profile: bool = False) -> tuple:
+    """``_lane_inputs``' arrays moved to ``device`` and the one
+    ``ops.cycle_lanes`` call over them: its raw outputs (see
+    ``kernels/cycle_lanes.py``; ``profile`` needs the card)."""
+    t = {k: torch.from_numpy(v).to(device) for k, v in ins.items()}
+    return ops.cycle_lanes(
+        t["desc"], t["fu_budgets"], t["mem_latency"], t["ppb"],
+        t["max_cycles"], t["direct"], t["offset"], t["parity"],
+        pt.device_views().n_real, t["preds_pad"], t["lat"], t["is_load"],
+        t["word_idx"], t["perm"], t["gid_perm"], t["seg_start"],
+        t["x_pos"], t["word_pos"], t["succ_ptr"], t["succ_pos"], t["pend0"],
+        scan_slots=sc.scan_slots, key_space=sc.key_space,
+        bank_slots=sc.bank_slots, pend_bits=sc.pend_bits,
+        wheel_slots=sc.wheel_slots, wheel_depth=sc.wheel_depth,
+        record=record, profile=profile)
 
 
 def schedule_batched(tr, cfgs: "Sequence[ScheduleConfig]", *, device=None,
@@ -148,14 +255,7 @@ def schedule_batched(tr, cfgs: "Sequence[ScheduleConfig]", *, device=None,
         return empty if len(empty) > 1 else empty[0]
 
     sc, ins = _lane_inputs(pt, cfgs)
-    t = {k: torch.from_numpy(v).to(dev) for k, v in ins.items()}
-    out = ops.cycle_lanes(
-        t["desc"], t["fu_budgets"], t["mem_latency"], t["ppb"],
-        t["max_cycles"], t["direct"], t["offset"], t["parity"],
-        pt.device_views().n_real, t["preds_pad"], t["lat"], t["is_load"],
-        t["word_idx"], t["perm"], t["gid_perm"], t["seg_start"],
-        scan_slots=sc.scan_slots, key_space=sc.key_space,
-        bank_slots=sc.bank_slots, record=collect_events)
+    out = lane_outputs(pt, sc, ins, dev, record=collect_events)
     cycles, cnt, per_array, err, maps = (o.cpu().numpy() for o in out[:5])
     ev = out[5].cpu().numpy() if collect_events else None
 
@@ -169,6 +269,9 @@ def schedule_batched(tr, cfgs: "Sequence[ScheduleConfig]", *, device=None,
         if err[b] == ERR_UNCONFIGURED:
             raise KeyError(
                 "memory op on array without a ScheduleConfig.mem spec")
+        if err[b] == ERR_WHEEL:
+            raise RuntimeError("cycle_lanes: more positions share a finish "
+                               f"than the wheel depth {sc.wheel_depth}")
 
     names = pt.trace.array_names
     results = [

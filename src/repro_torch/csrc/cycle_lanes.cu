@@ -11,8 +11,7 @@
 // What it computes.  The port-constrained list scheduler of the paper
 // (III-C) for one trace under L memory designs.  Each simulated cycle:
 //   1. retire: a node is retired once issued and finish <= cycle;
-//   2. ready: not issued and every predecessor finished (finish <= cycle;
-//      the pad predecessor NPAD has finish -1);
+//   2. ready: not issued and every predecessor retired;
 //   3. one segmented rank over the class-grouped priority permutation
 //      perm (arrays first, then the 7 FU classes, each sorted by
 //      (-height, node)): an FU-class node issues when its rank within
@@ -32,34 +31,59 @@
 //
 // What bounds it on this card.  Not bytes: a lane reads its trace
 // tensors and leaf tables once (under a megabyte a lane at the full DSE
-// matrix's sizes) and writes a few counters and its maps.  The serial chain of simulated cycles bounds it: a lane
-// runs up to ~41 000 cycles and each costs a handful of block barriers, a
-// pass of O(n_real / threads) node tests a thread (each a dependent chain
-// of L2 reads: perm -> finish / preds -> finish), and the deferral scan,
-// which is serial per array.  Lanes are independent, so L lanes run on L
-// SMs at once and the launch takes as long as its slowest lane.
+// matrix's sizes) and writes a few counters and its maps.  The serial
+// chain of simulated cycles bounds it: a lane runs up to ~41 000 cycles,
+// each a handful of block barriers and a few dependent L2 round trips
+// (the retire's pending-count atomics, the rank pass's reads of the ready
+// positions), plus the deferral scan, which is serial per array.  Lanes
+// are independent, so L lanes run on L SMs at once and the launch takes
+// as long as its slowest lane.
 //
-// Design (a simple kernel that is right; making it fast is later work).
-//   * One CTA of 512 threads a lane; the lane runs to completion.  A
-//     lane that finishes early exits.  No host round trip per cycle.
-//   * Node-sized state lives in a global workspace the wrapper allocates
-//     (finish [NPAD + 1], delayed [NPAD]); a node is issued exactly when
-//     its finish is below INT32_MAX, so no issued array is kept.
-//   * The ready set is a bitmap in shared memory in perm order, one word
-//     per 32 positions, built by warp ballots; its rank is a block-wide
-//     prefix sum of the words' popcounts (warp shuffles, then the warp
-//     totals).  A word's prefix plus the popcount below a bit is the
-//     exclusive rank of a position.
+// Design: a cycle costs work in proportion to what changes in it, as the
+// reference's C loop (_cycle_loop.c:237-262) does, not to the trace size.
+//   * Everything is in perm-position space: the host relabels the trace
+//     by priority position (succ_ptr/succ_pos, the pending seeds, x_pos =
+//     lat << 1 | is_load and the memory word of each position), so one
+//     position index reaches every per-node datum in one independent load.
+//   * Readiness from pending counts: each lane keeps pending[position],
+//     seeded from the in-degree, in a global workspace packed 8, 16 or 32
+//     bits a count (the narrowest that holds the trace's largest
+//     in-degree; a count is decremented by an atomicSub on its 32-bit word,
+//     which never borrows).  A position becomes ready when its count
+//     reaches 0: its bit is set in the ready bitmap, which lives in shared
+//     memory across cycles, with a summary bit per non-empty bitmap word
+//     and a ready count per class.  An issue clears its bit.
+//   * Retire from a finish wheel: W buckets of in-flight positions indexed
+//     by finish mod W, W a power of two above the batch's largest latency,
+//     so every bucket holds one finish value.  At the start of cycle c
+//     every bucket with finish <= c is drained, the whole CTA walking the
+//     drained positions' successors; the next finish for the idle-cycle
+//     jump is the least finish of a non-empty bucket.  A bucket holds at
+//     most wheel_depth positions (the host's bound on the issues that share
+//     a finish; a push beyond it is an error, never a silent drop).
+//   * Rank over the two-level bitmap: each thread owns a power-of-two run
+//     of words, counts the ready bits of its non-empty words (found from
+//     the summary) and a block scan gives each non-empty word its prefix
+//     and a slot in a compact list; the FU-issue and candidate pass walks
+//     only that list, a warp a word.  Class segment prefixes come from the
+//     per-class ready counts.
 //   * Candidates are laid into [A, S] slots in shared memory with their
 //     word index, load flag and latency, so the scan reads no node array.
 //   * The deferral scan runs one thread per array (arrays share no port
 //     state): the reference's lockstep scan unrolled per array.  Per-array
-//     port state (use, ruse, wuse) sits in shared memory, the rest in the
-//     scan thread's registers; the remap map [A, D] is the maps output.
-//   * Counters are summed after a barrier.  Launches with record = true
-//     also write the event log (cycle, path, resource, slot per node).
+//     port state (use, ruse, wuse) sits in shared memory, cleared by the
+//     whole CTA during the retire (not by each scan thread, key by key);
+//     the rest in the scan thread's registers; the remap map [A, D] is
+//     the maps output.
+//   * Counters are summed in shared memory, double-buffered by cycle
+//     parity so that the clock step needs no trailing barrier.  Launches
+//     with record = true also write the event log (cycle, path, resource,
+//     slot per node).
+//   * A profiling instantiation (PROFILE) sums clock64() per phase per
+//     lane: retire, rank, FU issue and candidates, deferral scan, clock.
 //   * Errors as in jax_cycle.py:70: max-cycles (1), deadlock (2) and a
-//     memory op on an unconfigured array (3); the host raises for them.
+//     memory op on an unconfigured array (3); a finish-wheel overflow (4)
+//     cannot happen under the host's bound.  The host raises for them.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -67,18 +91,19 @@ namespace {
 
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 4;               // perm words a warp tests together
 constexpr int kInf = 0x7fffffff;
 constexpr int kFields = 13;              // descriptor row (arbiter.py F_*)
 constexpr int kFu = 7;                   // FU classes (prepared.FU_ORDER)
+constexpr int kPhases = 5;               // profiled phases (see PROFILE)
 enum { F_KIND, F_RD, F_WR, F_SLOTS, F_NBANKS, F_DEPTH, F_LEVELS, F_HALF,
        F_SUB, F_MAXFAIL, F_CONFIGURED, F_NLEAVES, F_TREE_DEPTH };
 enum { K_IDEAL, K_BANKED, K_MULTIPUMP, K_H_NTX, K_B_NTX, K_HB_NTX, K_LVT,
        K_REMAP };
 enum { P_COMPUTE, P_DIRECT, P_PARITY, P_STEERED, P_PAIR_RMW, P_BROADCAST };
-enum { ERR_NONE, ERR_MAX_CYCLES, ERR_DEADLOCK, ERR_UNCONFIGURED };
-// per-cycle lane counters in shared memory
-enum { C_MEM, C_BANK, C_PARITY, C_PAIR, C_PR, C_RMW, C_UNCONF, C_MINFIN,
+enum { ERR_NONE, ERR_MAX_CYCLES, ERR_DEADLOCK, ERR_UNCONFIGURED,
+       ERR_WHEEL };
+// per-cycle lane counters in shared memory (two buffers, by cycle parity)
+enum { C_MEM, C_BANK, C_PARITY, C_PAIR, C_PR, C_RMW, C_UNCONF, C_WHEEL,
        C_N };
 
 struct Params {
@@ -90,37 +115,48 @@ struct Params {
   const int* direct;        // [L, A, D]
   const int* offset;        // [L, A, D]
   const int* parity;        // [L, A, D, PP]
-  const int* preds;         // [NPAD, P]
-  const int* lat;           // [NPAD]
-  const uint8_t* is_load;   // [NPAD]
-  const int* word_idx;      // [NPAD]
-  const int* perm;          // [NPAD]
-  const int* gid_perm;      // [NPAD]
-  const int* seg_start;     // [A + 8]
+  const int* perm;          // [NPAD] node at each position (event log)
+  const int* gid_perm;      // [NPAD] class id of each position
+  const int* x_pos;         // [n_real] lat << 1 | is_load by position
+  const int* word_pos;      // [n_real] memory word by position
+  const int* succ_ptr;      // [n_real + 1] successor CSR by position
+  const int* succ_pos;      // [E] successor positions
+  const uint32_t* pend0;    // [pend_words] packed in-degree seeds
   int* cycles;              // [L]
   int* cnt;                 // [L, 8]
   int* per_array;           // [L, A]
   int* err;                 // [L]
   int* maps;                // [L, A, D]
   int* events;              // [L, 4, NPAD] or null
-  int* finish_ws;           // [L, NPAD + 1]
-  uint8_t* delayed_ws;      // [L, NPAD]
-  int A, npad, P, n_real, S, U, NB, D, PP;
+  long long* prof;          // [L, kPhases + 1] or null
+  uint32_t* pend_ws;        // [L, pend_words]
+  uint8_t* delayed_ws;      // [L, n_real]
+  int* wheel_ws;            // [L, W, wheel_depth]
+  int A, npad, n_real, S, U, NB, D, PP;
+  int pend_log;             // log2(pending bits / 8): 0, 1 or 2
+  int pend_words;
+  int W, wheel_depth;
 };
 
 struct Smem {
   uint32_t* rbits;   // [W32] ready bit per perm position
-  int* wpre;         // [W32] ready count before each word
-  int* cand_node;    // [A * S]
+  uint32_t* sbits;   // [NSW] bit per non-empty rbits word
+  int* nz;           // [W32] non-empty words this cycle, in order
+  int* nzpre;        // [W32] ready count before each of them
+  int* cand_pos;     // [A * S]
   int* cand_w;       // [A * S] word index
   int* cand_x;       // [A * S] lat << 1 | is_load
   uint8_t* use;      // [A * (U + 1)] NTX port keys used this cycle
   int* ruse;         // [A * (NB + 1)] bank accesses this cycle
   int* wuse;         // [A * (NB + 1)] bank writes this cycle
   int* segpre;       // [A + 8] ready count before each class segment
-  int* red;          // [4 * kWarps] reduction scratch
-  int* ctr;          // [C_N] per-cycle lane counters
+  int* cls_ready;    // [A + 8] ready count of each class
+  int* red;          // [4 * kWarps] block-scan scratch
+  int* ctr;          // [2 * C_N] per-cycle lane counters
   int* arr;          // [A] per-array accesses (lane totals)
+  int* bcnt;         // [W] positions in each wheel bucket
+  int* bfin;         // [W] the finish of each non-empty bucket
+  int* budget;       // [kFu] FU budgets of the lane
 };
 
 __host__ __device__ inline size_t align16(size_t n) {
@@ -131,6 +167,7 @@ __host__ __device__ inline size_t align16(size_t n) {
 __host__ __device__ inline size_t smem_layout(const Params& p, char* base,
                                               Smem* s) {
   const int w32 = (p.n_real + 31) / 32;
+  const int nsw = (w32 + 31) / 32;
   size_t off = 0;
   auto take = [&](size_t bytes) {
     char* at = base != nullptr ? base + off : nullptr;
@@ -138,43 +175,59 @@ __host__ __device__ inline size_t smem_layout(const Params& p, char* base,
     return at;
   };
   char* rbits = take(sizeof(uint32_t) * (w32 + 1));
-  char* wpre = take(sizeof(int) * (w32 + 1));
-  char* cn = take(sizeof(int) * p.A * p.S);
+  char* sbits = take(sizeof(uint32_t) * (nsw + 1));
+  char* nz = take(sizeof(int) * (w32 + 1));
+  char* nzpre = take(sizeof(int) * (w32 + 1));
+  char* cp = take(sizeof(int) * p.A * p.S);
   char* cw = take(sizeof(int) * p.A * p.S);
   char* cx = take(sizeof(int) * p.A * p.S);
   char* use = take(size_t(p.A) * (p.U + 1));
   char* ruse = take(sizeof(int) * p.A * (p.NB + 1));
   char* wuse = take(sizeof(int) * p.A * (p.NB + 1));
   char* segpre = take(sizeof(int) * (p.A + 8));
+  char* cls = take(sizeof(int) * (p.A + 8));
   char* red = take(sizeof(int) * 4 * kWarps);
-  char* ctr = take(sizeof(int) * C_N);
+  char* ctr = take(sizeof(int) * 2 * C_N);
   char* arr = take(sizeof(int) * p.A);
+  char* bcnt = take(sizeof(int) * p.W);
+  char* bfin = take(sizeof(int) * p.W);
+  char* budget = take(sizeof(int) * kFu);
   if (s != nullptr) {
     s->rbits = reinterpret_cast<uint32_t*>(rbits);
-    s->wpre = reinterpret_cast<int*>(wpre);
-    s->cand_node = reinterpret_cast<int*>(cn);
+    s->sbits = reinterpret_cast<uint32_t*>(sbits);
+    s->nz = reinterpret_cast<int*>(nz);
+    s->nzpre = reinterpret_cast<int*>(nzpre);
+    s->cand_pos = reinterpret_cast<int*>(cp);
     s->cand_w = reinterpret_cast<int*>(cw);
     s->cand_x = reinterpret_cast<int*>(cx);
     s->use = reinterpret_cast<uint8_t*>(use);
     s->ruse = reinterpret_cast<int*>(ruse);
     s->wuse = reinterpret_cast<int*>(wuse);
     s->segpre = reinterpret_cast<int*>(segpre);
+    s->cls_ready = reinterpret_cast<int*>(cls);
     s->red = reinterpret_cast<int*>(red);
     s->ctr = reinterpret_cast<int*>(ctr);
     s->arr = reinterpret_cast<int*>(arr);
+    s->bcnt = reinterpret_cast<int*>(bcnt);
+    s->bfin = reinterpret_cast<int*>(bfin);
+    s->budget = reinterpret_cast<int*>(budget);
   }
   return off;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
 __device__ __forceinline__ int warp_min(int v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1)
     v = min(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ int warp_incl_sum(int v, int lane) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, v, o);
+    if (lane >= o) v += u;
+  }
   return v;
 }
 
@@ -184,12 +237,61 @@ __device__ __forceinline__ int fmod_pos(int x, int m) {
   return r < 0 ? r + m : r;
 }
 
+// The pending count of position i in a packed word (8 << pend_log bits).
+__device__ __forceinline__ uint32_t pend_field(uint32_t word, int i,
+                                               int pend_log) {
+  const int bits = 8 << pend_log;
+  const int sh = (i & ((4 >> pend_log) - 1)) * bits;
+  return bits == 32 ? word : (word >> sh) & ((1u << bits) - 1u);
+}
+
+// Position i becomes ready: its bit, its word's summary bit, its class.
+__device__ __forceinline__ void make_ready(const Params& p, const Smem& s,
+                                           int i) {
+  const uint32_t old = atomicOr(&s.rbits[i >> 5], 1u << (i & 31));
+  if (old == 0) atomicOr(&s.sbits[i >> 10], 1u << ((i >> 5) & 31));
+  atomicAdd(&s.cls_ready[__ldg(p.gid_perm + i)], 1);
+}
+
+// Position i issued from the scan (any thread): clear its ready bit.
+__device__ __forceinline__ void clear_ready(const Smem& s, int i) {
+  const uint32_t bit = 1u << (i & 31);
+  const uint32_t old = atomicAnd(&s.rbits[i >> 5], ~bit);
+  if ((old & ~bit) == 0) atomicAnd(&s.sbits[i >> 10],
+                                   ~(1u << ((i >> 5) & 31)));
+}
+
+// Position i goes into the finish wheel.
+__device__ __forceinline__ void push_wheel(const Params& p, const Smem& s,
+                                           int* wheel, int i, int fin,
+                                           int* ctr) {
+  const int b = fin & (p.W - 1);
+  const int k = atomicAdd(&s.bcnt[b], 1);
+  s.bfin[b] = fin;                   // every pusher writes the same value
+  if (k < p.wheel_depth) wheel[b * p.wheel_depth + k] = i;
+  else ctr[C_WHEEL] = 1;
+}
+
+// Retire position i: its successors' pending counts drop by one.
+__device__ __forceinline__ void retire(const Params& p, const Smem& s,
+                                       uint32_t* pend, int i) {
+  const int e0 = __ldg(p.succ_ptr + i), e1 = __ldg(p.succ_ptr + i + 1);
+  const int bits = 8 << p.pend_log;
+  const int per_word = 4 >> p.pend_log;
+  for (int e = e0; e < e1; ++e) {
+    const int q = __ldg(p.succ_pos + e);
+    const int sh = (q & (per_word - 1)) * bits;
+    const uint32_t old = atomicSub(pend + q / per_word, 1u << sh);
+    if (pend_field(old, q, p.pend_log) == 1) make_ready(p, s, q);
+  }
+}
+
 // The deferral scan of one array for one cycle (one thread).  Exactly the
 // pop / defer / issue procedure of jax_cycle.py:243-378 for this array.
 template <bool RECORD>
 __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
-                           int a, int cycle, int ncand, int* finish,
-                           uint8_t* delayed, int* events, int& min_fin) {
+                           int a, int cycle, int ncand, uint8_t* delayed,
+                           int* events, int* wheel, int* ctr) {
   const int* d = p.desc + (size_t(lane_id) * p.A + a) * kFields;
   const int kind = d[F_KIND];
   if (d[F_CONFIGURED] <= 0) return;
@@ -213,11 +315,9 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
   int n_bank = 0, n_par = 0, n_pair = 0, n_pr = 0, n_rmw = 0;
   bool stop = false, pair_used = false;
   int wr_half[2] = {0, 0};
-  uint8_t* use = s.use + size_t(a) * (p.U + 1);
+  uint8_t* use = s.use + size_t(a) * (p.U + 1);    // cleared in the retire
   int* ruse = s.ruse + a * (p.NB + 1);
   int* wuse = s.wuse + a * (p.NB + 1);
-  for (int k = 0; k <= p.U; ++k) use[k] = 0;
-  for (int k = 0; k <= p.NB; ++k) ruse[k] = wuse[k] = 0;
   int* amap = p.maps + (size_t(lane_id) * p.A + a) * p.D;
   const size_t tab = (size_t(lane_id) * p.A + a) * p.D;
 
@@ -229,7 +329,7 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
                                : (have && failed < max_failed);
     if (stop || !top) break;
     const int slot = a * p.S + j;
-    const int node = s.cand_node[slot];
+    const int pos = s.cand_pos[slot];
     const int w = s.cand_w[slot];
     const bool ld = s.cand_x[slot] & 1;
     const int nlat = s.cand_x[slot] >> 1;
@@ -341,10 +441,10 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
       } else if (!ld && is_lvt) {
         path = P_BROADCAST;
       }
-      const int fin = cycle + (ld ? mem_latency : nlat);
-      finish[node] = fin;
-      if (fin > cycle) min_fin = min(min_fin, fin);
+      clear_ready(s, pos);
+      push_wheel(p, s, wheel, pos, cycle + (ld ? mem_latency : nlat), ctr);
       if (RECORD) {
+        const int node = __ldg(p.perm + pos);
         events[node] = cycle;
         events[p.npad + node] = path;
         events[2 * p.npad + node] = res;
@@ -354,24 +454,25 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
     } else {
       ++failed;
       if (is_simple && dir_defer && failed >= max_failed) stop = true;
-      if (defer && !delayed[node]) {
-        delayed[node] = 1;
+      if (defer && !delayed[pos]) {
+        delayed[pos] = 1;
         if (is_ntx) { if (ld) ++n_par; else ++n_pair; } else { ++n_bank; }
       }
     }
   }
   if (mem_pa) {
-    atomicAdd(&s.ctr[C_MEM], mem_pa);
+    atomicAdd(&ctr[C_MEM], mem_pa);
     s.arr[a] += mem_pa;
+    s.cls_ready[a] -= mem_pa;
   }
-  if (n_bank) atomicAdd(&s.ctr[C_BANK], n_bank);
-  if (n_par) atomicAdd(&s.ctr[C_PARITY], n_par);
-  if (n_pair) atomicAdd(&s.ctr[C_PAIR], n_pair);
-  if (n_pr) atomicAdd(&s.ctr[C_PR], n_pr);
-  if (n_rmw) atomicAdd(&s.ctr[C_RMW], n_rmw);
+  if (n_bank) atomicAdd(&ctr[C_BANK], n_bank);
+  if (n_par) atomicAdd(&ctr[C_PARITY], n_par);
+  if (n_pair) atomicAdd(&ctr[C_PAIR], n_pair);
+  if (n_pr) atomicAdd(&ctr[C_PR], n_pr);
+  if (n_rmw) atomicAdd(&ctr[C_RMW], n_rmw);
 }
 
-template <bool RECORD>
+template <bool RECORD, bool PROFILE>
 __global__ void __launch_bounds__(kThreads, 1)
 cycle_lanes_kernel(Params p) {
   extern __shared__ __align__(16) char smem_raw[];
@@ -379,184 +480,218 @@ cycle_lanes_kernel(Params p) {
   smem_layout(p, smem_raw, &s);
   const int lane_id = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int npad = p.npad, A = p.A, S = p.S;
-  const int w32 = (p.n_real + 31) / 32;
-  int* finish = p.finish_ws + size_t(lane_id) * (npad + 1);
-  uint8_t* delayed = p.delayed_ws + size_t(lane_id) * npad;
+  const int npad = p.npad, A = p.A, S = p.S, n = p.n_real;
+  const int w32 = (n + 31) / 32;
+  const int nsw = (w32 + 31) / 32;
+  uint32_t* pend = p.pend_ws + size_t(lane_id) * p.pend_words;
+  uint8_t* delayed = p.delayed_ws + size_t(lane_id) * n;
+  int* wheel = p.wheel_ws + size_t(lane_id) * p.W * p.wheel_depth;
   int* events = RECORD ? p.events + size_t(lane_id) * 4 * npad : nullptr;
   const int max_cycles = p.max_cycles[lane_id];
-  const int* budgets = p.fu_budgets + lane_id * kFu;
 
-  for (int i = tid; i < npad; i += kThreads) {
-    finish[i] = kInf;
-    delayed[i] = 0;
-    if (RECORD) {
+  // ---- set-up: workspace, counters, the initial ready set -------------
+  for (int i = tid; i < p.pend_words; i += kThreads) pend[i] = p.pend0[i];
+  for (int i = tid; i < n; i += kThreads) delayed[i] = 0;
+  if (RECORD) {
+    for (int i = tid; i < npad; i += kThreads)
       events[i] = events[npad + i] = events[2 * npad + i] =
           events[3 * npad + i] = -1;
-    }
   }
-  if (tid == 0) finish[npad] = -1;               // the always-retired pred
   int* maps = p.maps + size_t(lane_id) * A * p.D;
   for (int i = tid; i < A * p.D; i += kThreads) maps[i] = 0;
   for (int i = tid; i < A; i += kThreads) s.arr[i] = 0;
-  // threads own contiguous ranges of bitmap words for the prefix sum
-  const int wpt = (w32 + kThreads - 1) / kThreads;
+  for (int i = tid; i < A + 8; i += kThreads) s.cls_ready[i] = 0;
+  for (int i = tid; i < p.W; i += kThreads) s.bcnt[i] = s.bfin[i] = 0;
+  for (int i = tid; i < 2 * C_N; i += kThreads) s.ctr[i] = 0;
+  if (tid < kFu) s.budget[tid] = p.fu_budgets[lane_id * kFu + tid];
+  __syncthreads();
+  // a warp's 32 consecutive positions make one bitmap word
+  for (int base = warp * 32; base < w32 * 32; base += kThreads) {
+    const int i = base + lane;
+    const bool r = i < n && pend_field(p.pend0[i >> (2 - p.pend_log)], i,
+                                       p.pend_log) == 0;
+    const uint32_t bits = __ballot_sync(0xffffffffu, r);
+    if (lane == 0) s.rbits[base >> 5] = bits;
+    if (r) atomicAdd(&s.cls_ready[__ldg(p.gid_perm + i)], 1);
+  }
+  __syncthreads();
+  for (int base = warp * 32; base < nsw * 32; base += kThreads) {
+    const int wd = base + lane;
+    const uint32_t bits = __ballot_sync(0xffffffffu,
+                                        wd < w32 && s.rbits[wd] != 0);
+    if (lane == 0) s.sbits[base >> 5] = bits;
+  }
+  // threads own power-of-two runs of bitmap words for the rank
+  int wpt = 1;
+  while (wpt * kThreads < w32) wpt <<= 1;
+  const int w_lo = tid * wpt;
+  const uint32_t run_mask = wpt >= 32 ? 0xffffffffu : (1u << wpt) - 1u;
 
-  int cycle = 0, remaining = p.n_real, err = ERR_NONE;
+  int cycle = 0, remaining = n, err = ERR_NONE, parity = 0;
   int cnt[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  long long ph[kPhases] = {0, 0, 0, 0, 0};
+  long long visited = 0, t_mark = 0;
+  if (PROFILE) t_mark = clock64();
+  auto mark = [&](int phase) {
+    if (PROFILE) {
+      const long long t = clock64();
+      ph[phase] += t - t_mark;
+      t_mark = t;
+    }
+  };
   __syncthreads();
 
   while (remaining > 0 && err == ERR_NONE) {
     if (err == ERR_NONE && cycle > max_cycles) err = ERR_MAX_CYCLES;
-    if (tid < C_N) s.ctr[tid] = tid == C_MINFIN ? kInf : 0;
+    int* ctr = s.ctr + parity * C_N;
+    if (PROFILE) ++visited;
 
-    // ---- pass A: retire count, in-flight nodes, ready bitmap ----------
-    int retired = 0, prev_min = kInf;
-    for (int base = warp * kUnroll; base < w32; base += kWarps * kUnroll) {
-      int node[kUnroll], fin[kUnroll];
-      bool rdy[kUnroll];
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const int i = (base + u) * 32 + lane;
-        node[u] = (base + u < w32 && i < p.n_real) ? __ldg(p.perm + i) : -1;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        fin[u] = node[u] >= 0 ? finish[node[u]] : kInf;
-        rdy[u] = node[u] >= 0 && fin[u] == kInf;
-        retired += node[u] >= 0 && fin[u] <= cycle;
-        if (fin[u] != kInf && fin[u] > cycle) prev_min = min(prev_min,
-                                                             fin[u]);
-      }
-      for (int k = 0; k < p.P; ++k) {
-        int pr[kUnroll];
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          pr[u] = rdy[u] ? __ldg(p.preds + size_t(node[u]) * p.P + k) : npad;
-#pragma unroll
-        for (int u = 0; u < kUnroll; ++u)
-          if (rdy[u]) rdy[u] = finish[pr[u]] <= cycle;
-      }
-#pragma unroll
-      for (int u = 0; u < kUnroll; ++u) {
-        const uint32_t bits = __ballot_sync(0xffffffffu, rdy[u]);
-        if (lane == 0 && base + u < w32) s.rbits[base + u] = bits;
+    // ---- retire: drain the wheel's buckets due by this cycle ----------
+    int drained = 0;
+    for (int b0 = 0; b0 < p.W; b0 += 32) {
+      const int b = b0 + lane;
+      const bool due = b < p.W && s.bcnt[b] > 0 && s.bfin[b] <= cycle;
+      uint32_t m = __ballot_sync(0xffffffffu, due);
+      while (m) {
+        const int bb = b0 + __ffs(m) - 1;
+        m &= m - 1;
+        const int c = s.bcnt[bb];
+        drained += c;
+        for (int k = tid; k < c; k += kThreads)
+          retire(p, s, pend, wheel[bb * p.wheel_depth + k]);
       }
     }
-    retired = warp_sum(retired);
-    prev_min = warp_min(prev_min);
-    if (lane == 0) {
-      s.red[warp] = retired;
-      s.red[kWarps + warp] = prev_min;
-    }
+    remaining -= drained;
+    for (int i = tid; i < A * (p.U + 1); i += kThreads) s.use[i] = 0;
+    for (int i = tid; i < A * (p.NB + 1); i += kThreads)
+      s.ruse[i] = s.wuse[i] = 0;
+    if (tid < C_N) ctr[tid] = 0;
     __syncthreads();
-    retired = 0;
-    prev_min = kInf;
-    for (int i = 0; i < kWarps; ++i) {
-      retired += s.red[i];
-      prev_min = min(prev_min, s.red[kWarps + i]);
+    mark(0);
+    for (int b = tid; b < p.W; b += kThreads)
+      if (s.bcnt[b] > 0 && s.bfin[b] <= cycle) s.bcnt[b] = 0;
+    // every thread: the ready total and the FU issue count of this cycle
+    int total_ready = 0, fu_total = 0;
+    for (int g = 0; g < A + kFu; ++g) {
+      const int r = s.cls_ready[g];
+      total_ready += r;
+      if (g >= A) fu_total += min(r, max(s.budget[g - A], 0));
     }
-    remaining = p.n_real - retired;
 
-    // ---- pass B: exclusive prefix of the ready words ----------------
-    int mine = 0;
-    const int w_lo = min(tid * wpt, w32), w_hi = min(w_lo + wpt, w32);
-    for (int wd = w_lo; wd < w_hi; ++wd) mine += __popc(s.rbits[wd]);
-    int incl = mine;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += v;
-    }
-    if (lane == 31) s.red[2 * kWarps + warp] = incl;
-    __syncthreads();
-    int before = 0, total_ready = 0;
-    for (int i = 0; i < kWarps; ++i) {
-      const int v = s.red[2 * kWarps + i];
-      if (i < warp) before += v;
-      total_ready += v;
-    }
-    int run = before + incl - mine;
-    for (int wd = w_lo; wd < w_hi; ++wd) {
-      s.wpre[wd] = run;
-      run += __popc(s.rbits[wd]);
-    }
-    if (tid == 0) {
-      s.wpre[w32] = total_ready;
-      s.rbits[w32] = 0;
-    }
-    __syncthreads();
-    // ready count before each class segment start
-    if (tid < A + 8) {
-      const int st = min(__ldg(p.seg_start + tid), p.n_real);
-      const int wd = st >> 5;
-      s.segpre[tid] = s.wpre[wd] +
-          __popc(s.rbits[wd] & ((1u << (st & 31)) - 1u));
-    }
-    __syncthreads();
+    if (total_ready > 0) {
+      // ---- rank: class prefixes; ready counts of the non-empty words --
+      if (tid < A + 8) {
+        int pre = 0;
+        for (int g = 0; g < tid; ++g) pre += s.cls_ready[g];
+        s.segpre[tid] = pre;
+      }
+      uint32_t mine = 0;
+      if (w_lo < w32)
+        mine = (s.sbits[w_lo >> 5] >> (w_lo & 31)) & run_mask;
+      int mine_r = 0;
+      for (uint32_t m = mine; m; m &= m - 1)
+        mine_r += __popc(s.rbits[w_lo + __ffs(m) - 1]);
+      const int mine_k = __popc(mine);
+      const int incl_r = warp_incl_sum(mine_r, lane);
+      const int incl_k = warp_incl_sum(mine_k, lane);
+      if (lane == 31) {
+        s.red[warp] = incl_r;
+        s.red[kWarps + warp] = incl_k;
+      }
+      __syncthreads();
+      int run_r = incl_r - mine_r, run_k = incl_k - mine_k, n_words = 0;
+      for (int i = 0; i < kWarps; ++i) {
+        const int k = s.red[kWarps + i];
+        if (i < warp) {
+          run_r += s.red[i];
+          run_k += k;
+        }
+        n_words += k;
+      }
+      for (uint32_t m = mine; m; m &= m - 1) {
+        const int wd = w_lo + __ffs(m) - 1;
+        s.nz[run_k] = wd;
+        s.nzpre[run_k] = run_r;
+        run_r += __popc(s.rbits[wd]);
+        ++run_k;
+      }
+      // the FU classes' counts drop by what this cycle issues (nothing
+      // reads cls_ready again before the next retire)
+      if (tid >= A && tid < A + kFu)
+        s.cls_ready[tid] -= min(s.cls_ready[tid], max(s.budget[tid - A], 0));
+      __syncthreads();
+      mark(1);
 
-    // ---- pass C: FU issue by rank, memory candidates into slots ------
-    int fu_issued = 0, fu_min = kInf;
-    for (int wd = warp; wd < w32; wd += kWarps) {
-      const uint32_t bits = s.rbits[wd];
-      if (bits == 0) continue;
-      if (!((bits >> lane) & 1u)) continue;
-      const int i = wd * 32 + lane;
-      const int node = __ldg(p.perm + i);
-      const int g = __ldg(p.gid_perm + i);
-      const int rank = s.wpre[wd] + __popc(bits & ((1u << lane) - 1u)) + 1 -
-                       s.segpre[g];
-      if (g >= A) {
-        if (g < A + kFu && rank <= budgets[g - A]) {
-          const int fin = cycle + __ldg(p.lat + node);
-          finish[node] = fin;
-          if (fin > cycle) fu_min = min(fu_min, fin);
-          ++fu_issued;
-          if (RECORD) {
-            events[node] = cycle;
-            events[npad + node] = P_COMPUTE;
-            events[3 * npad + node] = rank - 1;
+      // ---- FU issue by rank, memory candidates into slots ------------
+      for (int k = warp; k < n_words; k += kWarps) {
+        const int wd = s.nz[k];
+        const uint32_t bits = s.rbits[wd];
+        bool issued = false;
+        if ((bits >> lane) & 1u) {
+          const int i = wd * 32 + lane;
+          const int g = __ldg(p.gid_perm + i);
+          const int rank = s.nzpre[k] + __popc(bits & ((1u << lane) - 1u)) +
+                           1 - s.segpre[g];
+          if (g >= A) {
+            if (g < A + kFu && rank <= s.budget[g - A]) {
+              push_wheel(p, s, wheel, i, cycle + (__ldg(p.x_pos + i) >> 1),
+                         ctr);
+              issued = true;
+              if (RECORD) {
+                const int node = __ldg(p.perm + i);
+                events[node] = cycle;
+                events[npad + node] = P_COMPUTE;
+                events[3 * npad + node] = rank - 1;
+              }
+            }
+          } else if (rank - 1 < S) {
+            const int slot = g * S + rank - 1;
+            s.cand_pos[slot] = i;
+            s.cand_w[slot] = __ldg(p.word_pos + i);
+            s.cand_x[slot] = __ldg(p.x_pos + i);
           }
         }
-      } else if (rank - 1 < S) {
-        const int slot = g * S + rank - 1;
-        s.cand_node[slot] = node;
-        s.cand_w[slot] = __ldg(p.word_idx + node);
-        s.cand_x[slot] = (__ldg(p.lat + node) << 1) | (p.is_load[node] & 1);
+        const uint32_t gone = __ballot_sync(0xffffffffu, issued);
+        if (gone != 0 && lane == 0) {
+          const uint32_t left = bits & ~gone;
+          s.rbits[wd] = left;
+          if (left == 0) atomicAnd(&s.sbits[wd >> 5], ~(1u << (wd & 31)));
+        }
       }
-    }
-    fu_issued = warp_sum(fu_issued);
-    fu_min = warp_min(fu_min);
-    if (lane == 0) {
-      s.red[warp] = fu_issued;
-      s.red[kWarps + warp] = fu_min;
-    }
-    // unconfigured array with ready memory ops
-    if (tid < A) {
-      const int* d = p.desc + (size_t(lane_id) * A + tid) * kFields;
-      const int n_ready = s.segpre[tid + 1] - s.segpre[tid];
-      if (n_ready > 0 && d[F_CONFIGURED] <= 0) atomicOr(&s.ctr[C_UNCONF], 1);
-    }
-    __syncthreads();
+      // unconfigured array with ready memory ops
+      if (tid < A) {
+        const int* d = p.desc + (size_t(lane_id) * A + tid) * kFields;
+        if (s.segpre[tid + 1] > s.segpre[tid] && d[F_CONFIGURED] <= 0)
+          atomicOr(&ctr[C_UNCONF], 1);
+      }
+      __syncthreads();
+      mark(2);
 
-    // ---- the deferral scan: one thread an array ----------------------
-    if (tid < A) {
-      const int n_ready = s.segpre[tid + 1] - s.segpre[tid];
-      int scan_min = kInf;
-      scan_array<RECORD>(p, s, lane_id, tid, cycle, min(n_ready, S), finish,
-                         delayed, events, scan_min);
-      if (scan_min != kInf) atomicMin(&s.ctr[C_MINFIN], scan_min);
+      // ---- the deferral scan: one thread an array ---------------------
+      if (tid < A) {
+        const int n_ready = s.segpre[tid + 1] - s.segpre[tid];
+        scan_array<RECORD>(p, s, lane_id, tid, cycle, min(n_ready, S),
+                           delayed, events, wheel, ctr);
+      }
+      __syncthreads();
+      mark(3);
+    } else {
+      __syncthreads();     // the drained buckets are empty for everyone
     }
-    __syncthreads();
 
     // ---- advance the clock (every thread, from shared values) --------
-    int fu_total = 0, next_fin = min(prev_min, s.ctr[C_MINFIN]);
-    for (int i = 0; i < kWarps; ++i) {
-      fu_total += s.red[i];
-      next_fin = min(next_fin, s.red[kWarps + i]);
+    // The next retire reads the wheel and writes only the other counter
+    // buffer, cls_ready and the bitmap, none of which is read here, so
+    // no barrier closes the cycle.
+    int next_fin = kInf;
+    for (int b0 = 0; b0 < p.W; b0 += 32) {
+      const int b = b0 + lane;
+      const bool live = b < p.W && s.bcnt[b] > 0 && s.bfin[b] > cycle;
+      next_fin = min(next_fin, warp_min(live ? s.bfin[b] : kInf));
     }
-    const int mem_add = s.ctr[C_MEM];
-    if (err == ERR_NONE && s.ctr[C_UNCONF]) err = ERR_UNCONFIGURED;
+    const int mem_add = ctr[C_MEM];
+    if (err == ERR_NONE && ctr[C_UNCONF]) err = ERR_UNCONFIGURED;
+    if (ctr[C_WHEEL]) err = ERR_WHEEL;
     const bool still_ready = total_ready - fu_total - mem_add > 0;
     const bool any_inflight = next_fin != kInf;
     int ncycle = cycle + 1;
@@ -565,34 +700,54 @@ cycle_lanes_kernel(Params p) {
       err = ERR_DEADLOCK;
     cnt[0] += fu_total + mem_add;
     cnt[1] += mem_add;
-    cnt[2] += s.ctr[C_BANK];
-    cnt[3] += s.ctr[C_PARITY];
-    cnt[4] += s.ctr[C_PAIR];
-    cnt[5] += s.ctr[C_PR];
-    cnt[6] += s.ctr[C_RMW];
+    cnt[2] += ctr[C_BANK];
+    cnt[3] += ctr[C_PARITY];
+    cnt[4] += ctr[C_PAIR];
+    cnt[5] += ctr[C_PR];
+    cnt[6] += ctr[C_RMW];
     cnt[7] += mem_add > 0;
     cycle = ncycle;
-    __syncthreads();     // everyone has read the counters before a reset
+    parity ^= 1;
+    mark(4);
   }
 
+  __syncthreads();
   if (tid == 0) {
     p.cycles[lane_id] = cycle;
     p.err[lane_id] = err;
     for (int i = 0; i < 8; ++i) p.cnt[lane_id * 8 + i] = cnt[i];
+    if (PROFILE) {
+      long long* out = p.prof + size_t(lane_id) * (kPhases + 1);
+      for (int i = 0; i < kPhases; ++i) out[i] = ph[i];
+      out[kPhases] = visited;
+    }
   }
   for (int i = tid; i < A; i += kThreads) p.per_array[lane_id * A + i] =
       s.arr[i];
 }
 
-template <bool RECORD>
+template <bool RECORD, bool PROFILE>
 int launch(const Params& p, int lanes, cudaStream_t stream) {
   const size_t smem = smem_layout(p, nullptr, nullptr);
   cudaError_t e = cudaFuncSetAttribute(
-      cycle_lanes_kernel<RECORD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      cycle_lanes_kernel<RECORD, PROFILE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return static_cast<int>(e);
-  cycle_lanes_kernel<RECORD><<<lanes, kThreads, smem, stream>>>(p);
+  cycle_lanes_kernel<RECORD, PROFILE><<<lanes, kThreads, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// One CTA of kThreads threads crossing `iters` block-wide barriers; thread
+// 0 writes the SM clocks they took.
+__global__ void __launch_bounds__(kThreads, 1)
+barrier_probe_kernel(int iters, long long* clocks) {
+  __shared__ volatile int sink;
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+    if (threadIdx.x == (i & (kThreads - 1))) sink = i;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) *clocks = clock64() - t0;
 }
 
 }  // namespace
@@ -600,33 +755,53 @@ int launch(const Params& p, int lanes, cudaStream_t stream) {
 extern "C" {
 
 // Schedules L lanes over one trace (see cycle_lanes.py for the layouts).
-// All pointers are device pointers; events may be null when record is 0.
+// All pointers are device pointers; events may be null when record is 0,
+// prof null for the default instantiation (not both record and prof).
 // Returns a cudaError_t: cudaErrorInvalidValue for sizes the kernel does
-// not take (more than 256 arrays, fewer than one lane, or a shared-memory
-// layout beyond the card's 227 KB).
+// not take (more than 504 arrays, fewer than one lane, a wheel that is not
+// a power of two, more than 2**19 nodes, or a shared-memory layout beyond
+// the card's 227 KB).
 int cycle_lanes_launch(const int* desc, const int* fu_budgets,
                        const int* mem_latency, const int* ppb,
                        const int* max_cycles, const int* direct,
                        const int* offset, const int* parity,
-                       const int* preds, const int* lat,
-                       const uint8_t* is_load, const int* word_idx,
                        const int* perm, const int* gid_perm,
-                       const int* seg_start, int* cycles, int* cnt,
+                       const int* x_pos, const int* word_pos,
+                       const int* succ_ptr, const int* succ_pos,
+                       const uint32_t* pend0, int* cycles, int* cnt,
                        int* per_array, int* err, int* maps, int* events,
-                       int* finish_ws, uint8_t* delayed_ws, int lanes, int A,
-                       int npad, int P, int n_real, int S, int U, int NB,
-                       int D, int PP, int record, void* stream) {
+                       long long* prof, uint32_t* pend_ws,
+                       uint8_t* delayed_ws, int* wheel_ws, int lanes, int A,
+                       int npad, int n_real, int S, int U, int NB, int D,
+                       int PP, int pend_log, int pend_words, int W,
+                       int wheel_depth, int record, void* stream) {
   if (lanes < 1) return 0;
   Params p{desc, fu_budgets, mem_latency, ppb, max_cycles, direct, offset,
-           parity, preds, lat, is_load, word_idx, perm, gid_perm, seg_start,
-           cycles, cnt, per_array, err, maps, record ? events : nullptr,
-           finish_ws, delayed_ws, A, npad, P, n_real, S, U, NB, D, PP};
-  if (A < 1 || A + 8 > kThreads || n_real > npad || P < 1 || S < 1 ||
-      U < 1 || NB < 1 || D < 1 || PP < 1 || (record && events == nullptr) ||
+           parity, perm, gid_perm, x_pos, word_pos, succ_ptr, succ_pos,
+           pend0, cycles, cnt, per_array, err, maps,
+           record ? events : nullptr, prof, pend_ws, delayed_ws, wheel_ws,
+           A, npad, n_real, S, U, NB, D, PP, pend_log, pend_words, W,
+           wheel_depth};
+  const bool pow2_w = W >= 1 && (W & (W - 1)) == 0;
+  if (A < 1 || A + 8 > kThreads || n_real > npad || n_real < 0 ||
+      n_real > (kThreads * 32) * 32 || S < 1 || U < 1 || NB < 1 || D < 1 ||
+      PP < 1 || pend_log < 0 || pend_log > 2 ||
+      pend_words * (4 >> pend_log) < n_real || !pow2_w || wheel_depth < 1 ||
+      (record && events == nullptr) || (record && prof != nullptr) ||
       smem_layout(p, nullptr, nullptr) > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return record ? launch<true>(p, lanes, s) : launch<false>(p, lanes, s);
+  if (prof != nullptr) return launch<false, true>(p, lanes, s);
+  return record ? launch<true, false>(p, lanes, s)
+                : launch<false, false>(p, lanes, s);
+}
+
+// The SM clocks one CTA of 512 threads takes for `iters` block barriers
+// (written to *clocks, a device pointer).
+int cycle_lanes_barrier_probe(int iters, long long* clocks, void* stream) {
+  barrier_probe_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      iters, clocks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* repro_error_string(int code) {

@@ -18,8 +18,13 @@ Inputs (the same as the reference's ``_compiled(...)`` call):
   ``preds_pad`` [NPAD, P], ``lat`` [NPAD], ``is_load`` [NPAD] bool,
   ``word_idx`` [NPAD], ``perm``/``gid_perm`` [NPAD], ``seg_start``
   [A + 8];
-* static: ``scan_slots`` (S), ``key_space`` (U), ``bank_slots`` (NB)
-  and ``record``.
+* the kernel's view of the same trace by priority position (built by
+  ``core/sim/batched_cycle.py::_kernel_layout``; the plain version does
+  not read it): ``x_pos``/``word_pos`` [n_real], the successor CSR
+  ``succ_ptr`` [n_real + 1]/``succ_pos`` [E] and the packed in-degree
+  seeds ``pend0``;
+* static: ``scan_slots`` (S), ``key_space`` (U), ``bank_slots`` (NB),
+  ``pend_bits``, ``wheel_slots`` (W), ``wheel_depth`` and ``record``.
 
 Outputs: ``cycles`` [L], ``cnt`` [L, 8] (issued, mem issued, the three
 stall causes, parity-path reads, write-pair RMWs, cycles with a memory
@@ -53,8 +58,9 @@ from repro_torch.kernels import _build
 I32 = torch.int32
 INT32_INF = 2**31 - 1
 N_FU = 7
-# error codes of a lane (the host raises the reference loops' exceptions)
-ERR_NONE, ERR_MAX_CYCLES, ERR_DEADLOCK, ERR_UNCONFIGURED = 0, 1, 2, 3
+# error codes of a lane (the host raises the reference loops' exceptions;
+# ERR_WHEEL, a finish-wheel overflow, is the kernel's own)
+ERR_NONE, ERR_MAX_CYCLES, ERR_DEADLOCK, ERR_UNCONFIGURED, ERR_WHEEL = range(5)
 
 
 def _steer(wuse_o, ruse_o, valid, ppb):
@@ -88,7 +94,8 @@ def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
     The reference's batched ``while_loop`` keeps stepping while any lane
     runs and drops the update of lanes that have stopped; here a lane
     that has stopped keeps its ``cycle``/``err``/counters by masking,
-    and its other state is inert (no node of it is ready any more).
+    and its other state by having no node ready (a lane that stops in
+    error may still hold ready nodes and nodes in flight).
 
     The deferral scan pops each array's candidates in order; a step
     works on the (lane, array) pairs still scanning.  Between two issues
@@ -185,7 +192,9 @@ def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
         iss_r = issued[:, :NPAD]
         remaining_c = int(n_real) - (iss_r & (fin_r <= cyc)).sum(
             1, dtype=I32)
-        ready = (~iss_r) & (finish[:, preds] <= cyc[:, :, None]).all(-1)
+        # a lane that has stopped has nothing ready: it issues nothing
+        ready = (~iss_r) & (finish[:, preds] <= cyc[:, :, None]).all(-1) \
+            & live[:, None]
         ready_p = ready[:, perm_l]
 
         # ---- one segmented rank pass over the whole priority perm
@@ -454,36 +463,59 @@ def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
 def _launcher() -> tuple:
     lib = _build.load("cycle_lanes")
     fn = lib.cycle_lanes_launch
-    fn.argtypes = [ctypes.c_void_p] * 23 + [ctypes.c_int] * 11 + \
+    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 14 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    probe = lib.cycle_lanes_barrier_probe
+    probe.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    probe.restype = ctypes.c_int
     return lib, fn
 
 
 def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles, direct,
                 offset, parity, n_real: int, preds_pad, lat, is_load,
-                word_idx, perm, gid_perm, seg_start, *, scan_slots: int,
-                key_space: int, bank_slots: int, record: bool = False
-                ) -> tuple:
+                word_idx, perm, gid_perm, seg_start, x_pos, word_pos,
+                succ_ptr, succ_pos, pend0, *, scan_slots: int,
+                key_space: int, bank_slots: int, pend_bits: int,
+                wheel_slots: int, wheel_depth: int, record: bool = False,
+                profile: bool = False) -> tuple:
     """Schedule every lane (see the module docstring for the layout).
 
+    ``x_pos``, ``word_pos``, ``succ_ptr``, ``succ_pos`` and ``pend0``
+    are the kernel's view of the same trace by priority position, with
+    ``pend_bits``, ``wheel_slots`` and ``wheel_depth`` its sizes
+    (``core/sim/batched_cycle.py::_kernel_layout``); the plain version
+    reads the node-indexed inputs.
+
     CUDA tensors launch ``csrc/cycle_lanes.cu`` once for all lanes (one
-    CTA a lane; the lanes' node-sized workspace is allocated here with
-    ``torch.empty`` and initialised by the kernel); CPU tensors run
-    :func:`cycle_lanes_plain`."""
+    CTA a lane; the lanes' pending counts, first-deferral flags and
+    finish wheels are allocated here with ``torch.empty`` and
+    initialised by the kernel); CPU tensors run
+    :func:`cycle_lanes_plain`.  ``profile=True`` (the card only, not
+    with ``record``) launches the profiling instantiation and appends a
+    [L, 6] int64 tensor: the SM clocks each lane spent in its retire,
+    rank, FU issue and candidates, deferral scan and clock phases, and
+    the simulated cycles it visited."""
     ins = (desc, fu_budgets, mem_latency, ppb, max_cycles, direct, offset,
            parity, preds_pad, lat, is_load, word_idx, perm, gid_perm,
-           seg_start)
+           seg_start, x_pos, word_pos, succ_ptr, succ_pos, pend0)
     if _build.dispatch(*ins) == "cpu":
+        if profile:
+            raise ValueError("cycle_lanes: profile needs CUDA tensors")
         return cycle_lanes_plain(
             desc, fu_budgets, mem_latency, ppb, max_cycles, direct, offset,
             parity, n_real, preds_pad, lat, is_load, word_idx, perm,
             gid_perm, seg_start, scan_slots=scan_slots, key_space=key_space,
             bank_slots=bank_slots, record=record)
+    if record and profile:
+        raise ValueError("cycle_lanes: record and profile are exclusive")
     dev = desc.device
     L, A = desc.shape[0], desc.shape[1]
     NPAD, P = preds_pad.shape
     D, PP = direct.shape[2], parity.shape[3]
+    n = int(n_real)
+    per_word = 32 // pend_bits
+    pend_words = max(1, -(-n // per_word))
     i32 = (torch.int32,)
     for name, t, shape in (
             ("desc", desc, (L, A, N_FIELDS)), ("fu_budgets", fu_budgets,
@@ -495,9 +527,16 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles, direct,
             ("preds_pad", preds_pad, (NPAD, P)), ("lat", lat, (NPAD,)),
             ("word_idx", word_idx, (NPAD,)), ("perm", perm, (NPAD,)),
             ("gid_perm", gid_perm, (NPAD,)),
-            ("seg_start", seg_start, (A + N_FU + 1,))):
+            ("seg_start", seg_start, (A + N_FU + 1,)),
+            ("x_pos", x_pos, (n,)), ("word_pos", word_pos, (n,)),
+            ("succ_ptr", succ_ptr, (n + 1,)),
+            ("succ_pos", succ_pos, (succ_pos.shape[0],)),
+            ("pend0", pend0, (pend_words,))):
         _build.check_tensor(name, t, dev, i32, shape)
     _build.check_tensor("is_load", is_load, dev, (torch.bool,), (NPAD,))
+    if pend_bits not in (8, 16, 32):
+        raise ValueError(f"cycle_lanes: pend_bits {pend_bits} is not 8, "
+                         "16 or 32")
     cycles = torch.empty(L, dtype=I32, device=dev)
     cnt = torch.empty((L, 8), dtype=I32, device=dev)
     per_array = torch.empty((L, A), dtype=I32, device=dev)
@@ -505,27 +544,57 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles, direct,
     maps = torch.empty((L, A, D), dtype=I32, device=dev)
     events = (torch.empty((L, 4, NPAD), dtype=I32, device=dev) if record
               else None)
-    finish_ws = torch.empty((L, NPAD + 1), dtype=I32, device=dev)
-    delayed_ws = torch.empty((L, NPAD), dtype=torch.uint8, device=dev)
+    prof = (torch.empty((L, 6), dtype=torch.int64, device=dev) if profile
+            else None)
+    pend_ws = torch.empty((L, pend_words), dtype=I32, device=dev)
+    delayed_ws = torch.empty((L, max(n, 1)), dtype=torch.uint8, device=dev)
+    wheel_ws = torch.empty((L, wheel_slots, wheel_depth), dtype=I32,
+                           device=dev)
     lib, fn = _launcher()
     with torch.cuda.device(dev):
         code = fn(desc.data_ptr(), fu_budgets.data_ptr(),
                   mem_latency.data_ptr(), ppb.data_ptr(),
                   max_cycles.data_ptr(), direct.data_ptr(),
-                  offset.data_ptr(), parity.data_ptr(),
-                  preds_pad.data_ptr(), lat.data_ptr(), is_load.data_ptr(),
-                  word_idx.data_ptr(), perm.data_ptr(), gid_perm.data_ptr(),
-                  seg_start.data_ptr(), cycles.data_ptr(), cnt.data_ptr(),
-                  per_array.data_ptr(), err.data_ptr(), maps.data_ptr(),
-                  events.data_ptr() if record else None,
-                  finish_ws.data_ptr(), delayed_ws.data_ptr(),
-                  L, A, NPAD, P, int(n_real), max(scan_slots, 1),
-                  max(key_space, 1), max(bank_slots, 1), D, PP, int(record),
+                  offset.data_ptr(), parity.data_ptr(), perm.data_ptr(),
+                  gid_perm.data_ptr(), x_pos.data_ptr(),
+                  word_pos.data_ptr(), succ_ptr.data_ptr(),
+                  succ_pos.data_ptr(), pend0.data_ptr(), cycles.data_ptr(),
+                  cnt.data_ptr(), per_array.data_ptr(), err.data_ptr(),
+                  maps.data_ptr(), events.data_ptr() if record else None,
+                  prof.data_ptr() if profile else None, pend_ws.data_ptr(),
+                  delayed_ws.data_ptr(), wheel_ws.data_ptr(), L, A, NPAD, n,
+                  max(scan_slots, 1), max(key_space, 1), max(bank_slots, 1),
+                  D, PP, {8: 0, 16: 1, 32: 2}[pend_bits], pend_words,
+                  wheel_slots, wheel_depth, int(record),
                   _build.stream_ptr(desc))
     _build.check_status(lib, code, "cycle_lanes")
     cycle_lanes.launches += 1
     out = (cycles, cnt, per_array, err, maps)
-    return out + (events,) if record else out
+    if record:
+        out = out + (events,)
+    return out + (prof,) if profile else out
 
 
 cycle_lanes.launches = 0
+
+
+def barrier_ms(device, iters: int = 200_000) -> "tuple[float, float]":
+    """The card's time for one block-wide barrier of a 512-thread CTA
+    (the kernel's block size): one CTA crossing ``iters`` barriers,
+    timed by CUDA events.  Returns ``(ms a barrier, SM clocks a
+    barrier)``.  A measurement helper: it is no launch of the lane
+    kernel and is not counted."""
+    lib, _ = _launcher()
+    clocks = torch.zeros(1, dtype=torch.int64, device=device)
+    stream = _build.stream_ptr(clocks)
+    with torch.cuda.device(clocks.device):
+        _build.check_status(lib, lib.cycle_lanes_barrier_probe(
+            iters, clocks.data_ptr(), stream), "barrier probe")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _build.check_status(lib, lib.cycle_lanes_barrier_probe(
+            iters, clocks.data_ptr(), stream), "barrier probe")
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters, int(clocks.item()) / iters

@@ -556,6 +556,111 @@ def test_cycle_lanes_error_codes(cuda):
         schedule_batched(tr, [cfg], device=cuda)
 
 
+def _lane_call(pt, cfgs, device, **kw):
+    """``cycle_lanes`` on ``_lane_inputs``' tensors on ``device``: the
+    raw outputs (cycles, cnt, per_array, err, maps[, events][, prof])."""
+    from repro_torch.core.sim.batched_cycle import _lane_inputs, lane_outputs
+
+    sc, ins = _lane_inputs(pt, cfgs)
+    return lane_outputs(pt, sc, ins, device, **kw)
+
+
+def _same_raw(got, want):
+    """Every output equal, those of lanes that end in an error included
+    (such a lane stops where it failed, as the JAX lane freezes)."""
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert torch.equal(g.cpu(), w), (i, g, w)
+
+
+@pytest.mark.parametrize("mem_latency", [0, 7])
+@pytest.mark.parametrize("bench", ["kmp", "spmv_crs", "viterbi"])
+def test_cycle_lanes_matches_plain_at_other_load_latencies(cuda, bench,
+                                                           mem_latency):
+    """Raw outputs, error codes and event logs included: at
+    ``mem_latency`` 0 a load retires the cycle after it issues, and the
+    lanes of kmp and viterbi end in the JAX rules' deadlock (ROADMAP.md,
+    section C), which the kernel keeps."""
+    import dataclasses
+
+    from _torch_sched_util import golden_configs
+
+    pt, _, cfgs = golden_configs(bench)
+    cfgs = [dataclasses.replace(c, mem_latency=mem_latency)
+            for c in cfgs[::2]]
+    got = _lane_call(pt, cfgs, cuda, record=True)
+    torch.cuda.synchronize()
+    _same_raw(got, _lane_call(pt, cfgs, "cpu", record=True))
+
+
+def _odd_trace(n_loads: int, fan_in: int):
+    """``n_loads`` loads over two arrays in short chains, FADDs joining
+    pairs, and one FADD fed by ``fan_in`` of the loads (the trace's node
+    of largest in-degree), then a store: ``n_real`` is not a multiple
+    of 32."""
+    from repro_torch.core.sim import TraceBuilder
+    from repro_torch.core.sim.trace import FADD, FDIV
+
+    tb = TraceBuilder("odd")
+    a, b = tb.declare_array("a", 4), tb.declare_array("b", 8)
+    loads, prev = [], ()
+    for i in range(n_loads):
+        x = tb.load(a if i % 3 else b, (7 * i) % 61, prev)
+        loads.append(x)
+        prev = (x,) if i % 5 else ()
+    joins = [tb.op(FADD, loads[i], loads[i + 1])
+             for i in range(0, n_loads - 1, 2)]
+    hub = tb.op(FADD, *loads[:fan_in])
+    tb.store(a, 3, (tb.op(FDIV, hub, joins[-1]),))
+    return tb.build()
+
+
+@pytest.mark.parametrize("fan_in", [2, 300])
+def test_cycle_lanes_odd_sizes_and_the_widest_node(cuda, fan_in):
+    from repro_torch.core.amm.spec import AMMSpec
+    from repro_torch.core.sim import ScheduleConfig, prepare_trace
+    from repro_torch.core.sim.batched_cycle import _lane_inputs
+
+    pt = prepare_trace(_odd_trace(333, fan_in))
+    assert pt.device_views().n_real % 32 != 0
+    assert int(pt.indegree.max()) == fan_in
+    cfgs = [ScheduleConfig(mem={0: AMMSpec(k, 4, 2, 64, n_banks=nb),
+                                1: AMMSpec("ideal", 2, 2, 64)},
+                           fu_counts={"fadd": 2}, mem_latency=lat)
+            for k, nb, lat in (("banked", 4, 2), ("hb_ntx", 1, 3),
+                               ("remap", 1, 1), ("lvt", 1, 0),
+                               ("ideal", 1, 5))]
+    sc, _ = _lane_inputs(pt, cfgs)
+    assert sc.pend_bits == (16 if fan_in > 255 else 8)
+    got = _lane_call(pt, cfgs, cuda, record=True)
+    torch.cuda.synchronize()
+    _same_raw(got, _lane_call(pt, cfgs, "cpu", record=True))
+
+
+def test_cycle_lanes_profile_and_barrier_probe(cuda):
+    """The profiling instantiation schedules as the default one does
+    and counts each lane's phases and visited cycles; the barrier probe
+    gives a positive time."""
+    from _torch_sched_util import golden_configs
+    from repro_torch.kernels.cycle_lanes import barrier_ms, cycle_lanes
+
+    pt, _, cfgs = golden_configs("bfs_queue")
+    launches = cycle_lanes.launches
+    plain = _lane_call(pt, cfgs, cuda)
+    prof = _lane_call(pt, cfgs, cuda, profile=True)
+    torch.cuda.synchronize()
+    assert cycle_lanes.launches == launches + 2
+    _same_raw(prof[:5], [t.cpu() for t in plain])
+    p = prof[5].cpu()
+    assert p.shape == (len(cfgs), 6) and bool((p >= 0).all())
+    assert bool((p[:, 5] <= prof[0].cpu()).all()) and bool((p[:, 5] > 0).all())
+    assert bool((p[:, :5].sum(1) > 0).all())
+    ms, clocks = barrier_ms(cuda, iters=10_000)
+    assert ms > 0 and clocks > 0
+    with pytest.raises(ValueError):
+        _lane_call(pt, cfgs, cuda, record=True, profile=True)
+
+
 def test_cycle_lanes_rejects_what_it_does_not_take(cuda):
     """A layout beyond the card's shared memory is refused at launch
     (the wrapper raises); a CPU tensor mixed with CUDA ones is refused."""
@@ -570,11 +675,16 @@ def test_cycle_lanes_rejects_what_it_does_not_take(cuda):
             t["max_cycles"], t["direct"], t["offset"], t["parity"],
             pt.device_views().n_real, t["preds_pad"], t["lat"],
             t["is_load"], t["word_idx"], t["perm"], t["gid_perm"],
-            t["seg_start"])
+            t["seg_start"], t["x_pos"], t["word_pos"], t["succ_ptr"],
+            t["succ_pos"], t["pend0"])
+    sizes = dict(key_space=sc.key_space, bank_slots=sc.bank_slots,
+                 pend_bits=sc.pend_bits, wheel_slots=sc.wheel_slots,
+                 wheel_depth=sc.wheel_depth)
     with pytest.raises(RuntimeError, match="cycle_lanes launch failed"):
-        cycle_lanes(*args, scan_slots=1 << 16, key_space=sc.key_space,
-                    bank_slots=sc.bank_slots)
+        cycle_lanes(*args, scan_slots=1 << 16, **sizes)
+    with pytest.raises(RuntimeError, match="cycle_lanes launch failed"):
+        cycle_lanes(*args, scan_slots=sc.scan_slots,
+                    **dict(sizes, wheel_slots=3))
     with pytest.raises(ValueError):
         cycle_lanes(*args[:9], args[9].cpu(), *args[10:],
-                    scan_slots=sc.scan_slots, key_space=sc.key_space,
-                    bank_slots=sc.bank_slots)
+                    scan_slots=sc.scan_slots, **sizes)
