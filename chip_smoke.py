@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving-memory path on one CUDA card.
+"""Drive the PyTorch port's paths on one CUDA card.
 
     python3 chip_smoke.py [--seed N]
 
@@ -85,7 +85,30 @@ fails:
    (d) ``sweep_batched`` on the card for paged_kv: its ``DSEPoint``s and
    Pareto fronts equal to those of the golden rows through
    ``point_from_schedule``; (e) the kernels' ``-Xptxas -v`` lines, which
-   must show no spill.
+   must show no spill;
+9. the DSE's own entry point and Fig 5: (a) the cold pass,
+   ``run_sweep_bench(name, full=True)`` for the 15 benchmarks over a
+   fresh cache under ``build/`` (the grid of ``benchmarks/run.py --only
+   fig5_locality --full``), one ``cycle_lanes`` launch a benchmark
+   (counted from 0 just before the pass), every point equal to its golden
+   row of ``tests/golden_schedule_full.json`` folded through
+   ``point_from_schedule``, with each benchmark's host wall time; (b) the
+   warm pass, the same calls: the manifest's fast path on every
+   benchmark, 1200 hits and 0 misses, no trace generated and no launch;
+   (c) Fig 5: each benchmark's ``L_spatial``, performance ratio,
+   expansion, nodes and memory operations, and the Spearman rho of
+   locality against the ratio and against the expansion, each equal to
+   the same numbers computed from the golden rows' points, and the
+   card's ``spatial_locality_torch`` over every array's address stream,
+   weighted as ``trace_locality`` weights it, within 1e-9 of the trace's
+   locality; (d) ``run_sweep(check=True)`` on full-size bfs_queue and
+   paged_kv (0 legality violations), and a cache entry whose cycles were
+   edited, its sha256 recomputed, caught by the audit (``LegalityError``);
+   (e) ``python -m repro_torch.core.dse.runner --bench md_knn --full
+   --check`` in a subprocess: its CSV rows equal to the points of (a),
+   its ``#`` lines printed; (f) every benchmark's ``run_torch`` on the
+   card at ``Params()`` against its numpy reference
+   (``tests/_torch_bench_calls.py``), with its device time.
 
 Every time is a median of device time between CUDA events (see
 ``time_ms``).  It then prints the ``kernels`` JSON line (kernel, plain,
@@ -148,7 +171,8 @@ FULL_FAULTS, FULL_CYCLES, CAMPAIGN_SEED = 128, 256, 7
 REPLAY_IDS = 4096             # 2048 two-read cycles of the gather oracle
 # phase 8: the golden schedule files; the TINY matrix's designs and
 # configurations come from tests/_torch_sched_util.py
-TESTS_DIR = pathlib.Path(__file__).resolve().parent / "tests"
+REPO = pathlib.Path(__file__).resolve().parent
+TESTS_DIR = REPO / "tests"
 GOLDEN_SCHEDULE = TESTS_DIR / "golden_schedule.json"
 GOLDEN_SCHEDULE_FULL = TESTS_DIR / "golden_schedule_full.json"
 SCHEDULE_FIELDS = ("cycles", "issued", "mem_issued", "bank_conflict_stalls",
@@ -157,6 +181,9 @@ SCHEDULE_FIELDS = ("cycles", "issued", "mem_issued", "bank_conflict_stalls",
 PLAIN_BENCH = "bfs_queue"     # the smallest full trace: kernel vs plain
 SWEEP_BENCH = "paged_kv"      # sweep_batched on the card
 CHECK_BENCH = "sort_merge"    # the largest full trace: its logs checked
+# phase 9: the benchmarks audited with event logs, and the CLI's
+AUDIT_BENCHES = ("bfs_queue", "paged_kv")
+CLI_BENCH = "md_knn"
 PHASES = ("retire", "rank", "FU issue + candidates", "deferral scan",
           "clock")              # cycle_lanes' profiled phases
 
@@ -483,6 +510,37 @@ def schedule_bytes(pt, ins: dict) -> "tuple[int, int]":
     return n_bytes + leaf, leaf
 
 
+def golden_points(pt, full: list) -> list:
+    """The full-size golden rows of ``pt``'s benchmark (the default
+    designs x unrolls 1, 2, 4, 8, designs-major) folded into DSEPoints by
+    ``point_from_schedule``, as the runner folds a schedule."""
+    from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
+                                            point_from_schedule,
+                                            schedule_config_for)
+    from repro_torch.core.sim import ScheduleResult
+    grid = [(dp, u) for dp in DEFAULT_DESIGNS for u in DEFAULT_UNROLLS]
+    rows = [g for g in full if g["bench"] == pt.trace.name]
+    check([(g["design"], g["unroll"]) for g in rows]
+          == [(dp.label, u) for dp, u in grid],
+          f"{pt.trace.name}: golden rows out of the grid's order")
+    return [point_from_schedule(
+        pt, dp, u, schedule_config_for(pt, dp, u), ScheduleResult(
+            per_array_accesses={},
+            **{k: v for k, v in g.items()
+               if k not in ("bench", "design", "unroll")}))
+        for (dp, u), g in zip(grid, rows)]
+
+
+def same_points(got: list, want: list) -> bool:
+    """Equal DSEPoints, ``avg_mem_parallelism`` within 1e-9 (the golden
+    file rounds it to 9 places)."""
+    def same(a, b) -> bool:
+        ra, rb = a.row(), b.row()
+        return (abs(ra.pop("avg_mem_parallelism")
+                    - rb.pop("avg_mem_parallelism")) < 1e-9 and ra == rb)
+    return len(got) == len(want) and all(map(same, got, want))
+
+
 def legal_logs(pt, cfgs, results, logs, what: str) -> float:
     """Check every event log with the port's legality checker
     (``core/verify``: the paper's arbitration rules re-derived from the
@@ -526,9 +584,8 @@ def timing_backend(dev: torch.device) -> dict:
     from repro_torch.core.bench import BENCHMARKS, get_trace
     from repro_torch.core.dse import pareto_front, sweep_batched
     from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
-                                            point_from_schedule,
                                             schedule_config_for)
-    from repro_torch.core.sim import ScheduleResult, prepare_trace
+    from repro_torch.core.sim import prepare_trace
     from repro_torch.core.sim.batched_cycle import (_lane_inputs,
                                                     schedule_batched)
     from repro_torch.kernels import _build, ops
@@ -688,21 +745,8 @@ def timing_backend(dev: torch.device) -> dict:
     # (d) sweep_batched on the card against the golden rows, folded
     pt = prepared[SWEEP_BENCH]
     points = sweep_batched(pt, device=dev)
-    rows = [g for g in full if g["bench"] == SWEEP_BENCH]
-    want = [point_from_schedule(
-        pt, dp, u, cfg, ScheduleResult(
-            per_array_accesses={},
-            **{k: v for k, v in g.items()
-               if k not in ("bench", "design", "unroll")}))
-        for (dp, u), cfg, g in zip(grid, configs[SWEEP_BENCH], rows)]
-    # the golden file rounds avg_mem_parallelism to 9 places
-    def same_point(a, b) -> bool:
-        ra, rb = a.row(), b.row()
-        return (abs(ra.pop("avg_mem_parallelism")
-                    - rb.pop("avg_mem_parallelism")) < 1e-9 and ra == rb)
-
-    check(len(points) == len(want)
-          and all(same_point(a, b) for a, b in zip(points, want)),
+    want = golden_points(pt, full)
+    check(same_points(points, want),
           f"{SWEEP_BENCH}: sweep_batched points != the golden rows' points")
     fronts = {}
     for family, keep in (("all", lambda p: True), ("amm", lambda p: p.is_amm),
@@ -731,6 +775,239 @@ def timing_backend(dev: torch.device) -> dict:
             "plain_inputs_ms": card_ms,
             "bound_ms": b_ms, "bound_by": b_by, "serial_floor_ms": floor_ms,
             "library_ms": None}
+
+
+def runner_and_fig5(dev: torch.device) -> dict:
+    """Phase 9: the DSE's own entry point and Fig 5.  (a) the cold pass:
+    ``run_sweep_bench`` for every benchmark at full size over a fresh
+    cache, equal to the golden rows; (b) the warm pass, served from the
+    cache with no trace generated and no launch; (c) the Fig-5 table and
+    its rank correlations, equal to those of the golden rows' points,
+    and the card's locality of every trace; (d) the audit, and an edited
+    cache entry caught by it; (e) the CLI in a subprocess; (f) every
+    benchmark's ``run_torch`` on the card against its numpy reference.
+    Returns the launches of the cold pass and its times."""
+    import os
+    import shutil
+
+    import repro_torch.core.bench as bench_mod
+    from repro_torch.core.bench import BENCHMARKS, get_trace
+    from repro_torch.core.dse import (design_space_expansion,
+                                      performance_ratio, run_sweep,
+                                      run_sweep_bench, spearman_rho)
+    from repro_torch.core.dse.runner import SweepCache, point_key
+    from repro_torch.core.dse.sweep import DEFAULT_DESIGNS, DEFAULT_UNROLLS
+    from repro_torch.core.locality import spatial_locality_torch
+    from repro_torch.core.sim import prepare_trace
+    from repro_torch.core.verify import LegalityError
+    from repro_torch.kernels.cycle_lanes import cycle_lanes
+    sys.path.insert(0, str(TESTS_DIR))
+    from _torch_bench_calls import bench_case, holds, max_abs_err
+
+    full = json.loads(GOLDEN_SCHEDULE_FULL.read_text())
+    n_points = len(DEFAULT_DESIGNS) * len(DEFAULT_UNROLLS)
+    root = REPO / "build" / "dse_runner"
+    shutil.rmtree(root, ignore_errors=True)
+    cache_dir = root / "cache"
+    # the golden rows' points (set-up; the traces are phase 8's, memoized)
+    want = {b: golden_points(prepare_trace(get_trace(b, full=True)), full)
+            for b in BENCHMARKS}
+
+    # (a) the cold pass: every point a miss, one launch a benchmark
+    cache = SweepCache(cache_dir)
+    cold, cold_s = {}, {}
+    torch.cuda.synchronize()
+    cycle_lanes.launches = 0
+    for bench in BENCHMARKS:
+        t0 = time.perf_counter()
+        cold[bench] = run_sweep_bench(bench, full=True, cache=cache,
+                                      device=dev)
+        cold_s[bench] = time.perf_counter() - t0
+    launches = cycle_lanes.launches
+    check(launches == len(BENCHMARKS),
+          f"the cold pass launched cycle_lanes {launches} times for "
+          f"{len(BENCHMARKS)} benchmarks")
+    check((cache.hits, cache.misses) == (0, n_points * len(BENCHMARKS)),
+          f"cold pass: {cache.hits} hits, {cache.misses} misses")
+    for bench in BENCHMARKS:
+        check(same_points(cold[bench], want[bench]),
+              f"{bench}: run_sweep_bench's points != the golden rows'")
+    print("runner (a) cold: " + ", ".join(
+        f"{b} {s * 1e3:.1f}" for b, s in cold_s.items())
+        + f" ms (host clock); {sum(cold_s.values()):.3f} s in all for "
+        f"{cache.misses} points in {launches} launches of cycle_lanes, "
+        "each point equal to its row of tests/golden_schedule_full.json "
+        "(the traces were memoized by phase 8)")
+
+    # (b) the warm pass: the manifest's fast path, no trace, no launch
+    cache = SweepCache(cache_dir)
+    traces = []
+    real_get_trace = bench_mod.get_trace
+
+    def counted_get_trace(*args, **kwargs):
+        traces.append(args)
+        return real_get_trace(*args, **kwargs)
+
+    warm_s = {}
+    cycle_lanes.launches = 0
+    bench_mod.get_trace = counted_get_trace
+    try:
+        for bench in BENCHMARKS:
+            stats: dict = {}
+            t0 = time.perf_counter()
+            pts = run_sweep_bench(bench, full=True, cache=cache, stats=stats,
+                                  device=dev)
+            warm_s[bench] = time.perf_counter() - t0
+            check(stats == {"fast_path": True} and pts == cold[bench],
+                  f"{bench}: the warm pass missed the fast path: {stats}")
+    finally:
+        bench_mod.get_trace = real_get_trace
+    check((cache.hits, cache.misses) == (n_points * len(BENCHMARKS), 0)
+          and not traces and cycle_lanes.launches == 0,
+          f"warm pass: {cache.hits} hits, {cache.misses} misses, "
+          f"{len(traces)} traces, {cycle_lanes.launches} launches")
+    print(f"runner (b) warm: {sum(warm_s.values()):.3f} s in all (host "
+          f"clock; {min(warm_s.values()) * 1e3:.1f}-"
+          f"{max(warm_s.values()) * 1e3:.1f} ms a benchmark), "
+          f"{cache.hits} hits, 0 misses, fast path on every benchmark, no "
+          "trace generated, no launch")
+
+    # (c) Fig 5: locality against the performance ratio
+    table, golden_table = [], []
+    loc_ms = 0.0
+    for bench in sorted(BENCHMARKS):
+        pt = prepare_trace(get_trace(bench, full=True))
+        row = {"bench": bench, "nodes": pt.n_nodes,
+               "mem_ops": pt.trace.n_mem, "L_spatial": pt.locality}
+        for what, pts in (("port", cold[bench]), ("golden", want[bench])):
+            r = dict(row, perf_ratio=performance_ratio(pts),
+                     expansion=design_space_expansion(
+                         [p for p in pts if not p.is_amm],
+                         [p for p in pts if p.is_amm]))
+            (table if what == "port" else golden_table).append(r)
+        # the card's locality: each array's stream, weighted by accesses
+        addrs, ids = pt.trace.mem_addrs_and_arrays()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        total, weight = 0.0, 0
+        for aid in np.unique(ids):
+            sel = ids == aid
+            total += spatial_locality_torch(
+                torch.from_numpy(addrs[sel]).to(dev)) * int(sel.sum())
+            weight += int(sel.sum())
+        loc_ms += (time.perf_counter() - t0) * 1e3
+        card_l = total / max(weight, 1)
+        check(abs(card_l - pt.locality) < 1e-9,
+              f"{bench}: locality on the card {card_l!r} != "
+              f"{pt.locality!r}")
+        r = table[-1]
+        print(f"fig5 {bench}: L_spatial {r['L_spatial']:.6f} (card "
+              f"{card_l:.6f}), perf_ratio {r['perf_ratio']:.6f}, expansion "
+              f"{r['expansion']:.6f}, nodes {r['nodes']}, mem_ops "
+              f"{r['mem_ops']}")
+
+    def same(a, b) -> bool:
+        return a == b or (np.isnan(a) and np.isnan(b))
+
+    check(all(same(a[k], b[k]) for a, b in zip(table, golden_table)
+              for k in ("perf_ratio", "expansion")),
+          "the Fig-5 numbers differ from the golden rows'")
+    rhos = {}
+    for what, t in (("port", table), ("golden", golden_table)):
+        rhos[what] = (spearman_rho([r["L_spatial"] for r in t],
+                                   [r["perf_ratio"] for r in t]),
+                      spearman_rho([r["L_spatial"] for r in t],
+                                   [r["expansion"] for r in t]))
+    check(all(map(same, rhos["port"], rhos["golden"])),
+          f"rho {rhos['port']} != the golden rows' {rhos['golden']}")
+    rho, rho_exp = rhos["port"]
+    n_ok = sum(np.isfinite(r["perf_ratio"]) for r in table)
+    print(f"fig5: rho(L, perf_ratio) {rho:.6f}, rho(L, expansion) "
+          f"{rho_exp:.6f} over {len(table)} benchmarks ({n_ok} finite "
+          f"ratios); the paper's claim (rho < 0) holds: "
+          f"{'indeterminate' if np.isnan(rho) else bool(rho < 0)}; equal "
+          "to the golden rows' numbers; the card's locality of every "
+          f"trace within 1e-9 of pt.locality ({loc_ms:.1f} ms host clock "
+          f"for the {len(table)} traces' arrays)")
+
+    # (d) the audit: re-scheduled with event logs, checked by core/verify
+    for bench in AUDIT_BENCHES:
+        pt = prepare_trace(get_trace(bench, full=True))
+        cache = SweepCache(cache_dir)
+        t0 = time.perf_counter()
+        pts = run_sweep(pt, cache=cache, check=True, device=dev)
+        check(pts == cold[bench] and cache.hits == n_points,
+              f"{bench}: the audited sweep's points changed")
+        print(f"runner (d) {bench}: run_sweep(check=True) over the cached "
+              f"points: {len(pts)} event logs legal, 0 violations "
+              f"({time.perf_counter() - t0:.2f} s host clock)")
+    edited = root / "edited"
+    pt = prepare_trace(get_trace("paged_kv", full=True))
+    run_sweep(pt, cache_dir=edited, device=dev)
+    dp, u = DEFAULT_DESIGNS[7], DEFAULT_UNROLLS[1]
+    path = SweepCache(edited)._path(point_key(pt.fingerprint, dp, u, 2))
+    entry = json.loads(path.read_text())
+    entry["point"]["cycles"] += 1
+    entry["sha256"] = SweepCache._digest(entry["point"])
+    path.write_text(json.dumps(entry))
+    try:
+        run_sweep(pt, cache_dir=edited, check=True, device=dev)
+        caught = ""
+    except LegalityError as e:
+        caught = str(e).splitlines()[1].strip()
+    check("counter" in caught, "an edited cache entry passed the audit")
+    print(f"runner (d) an entry of paged_kv ({dp.label} u{u}) with its "
+          f"cycles edited and its sha256 recomputed: LegalityError, "
+          f"{caught}")
+
+    # (e) the CLI, in a process of its own
+    cli_dir = root / "cli"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src")] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else [])))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.core.dse.runner", "--bench",
+         CLI_BENCH, "--full", "--check", "--cache-dir", str(cli_dir)],
+        capture_output=True, text=True, env=env, timeout=600, cwd=REPO)
+    cli_s = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"the runner CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = proc.stdout.splitlines()
+    rows = [ln for ln in lines if ln and not ln.startswith("#")]
+    cols = [f.name for f in dataclasses.fields(cold[CLI_BENCH][0])]
+    expect = [",".join(cols)] + [
+        ",".join(f"{v:.6g}" if isinstance(v, float) else str(v)
+                 for v in (p.row()[c] for c in cols))
+        for p in cold[CLI_BENCH]]
+    check(rows == expect, "the CLI's CSV rows != the golden-equal points")
+    print(f"runner (e) python -m repro_torch.core.dse.runner --bench "
+          f"{CLI_BENCH} "
+          f"--full --check: {len(rows) - 1} CSV rows equal to the points "
+          f"of (a) ({cli_s:.1f} s host clock for the process)")
+    for ln in lines:
+        if ln.startswith("#"):
+            print(f"runner (e) {ln}")
+
+    # (f) every benchmark's run_torch on the card, at Params()
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: gemm_ncubed's f32 product would use them")
+    for bench in BENCHMARKS:
+        call, ref = bench_case(bench, BENCHMARKS[bench].Params(), dev)
+        got = call()
+        torch.cuda.synchronize()
+        check(all(g.device.type == dev.type for g in got)
+              and holds(bench, got, ref),
+              f"{bench}: run_torch on the card != its numpy reference "
+              f"(largest error {max_abs_err(got, ref):.3g})")
+        ms = time_ms(call, reps=5, warmup=1)
+        print(f"run_torch {bench}: equal to its numpy reference (largest "
+              f"error {max_abs_err(got, ref):.3g}), {ms:.3f} ms device "
+              "time (for the record)")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"runner_launches": launches,
+            "runner_cold_s": sum(cold_s.values()),
+            "runner_warm_s": sum(warm_s.values())}
 
 
 def main() -> int:
@@ -1220,6 +1497,9 @@ def main() -> int:
 
     # ---- 8. the batched timing backend ------------------------------
     schedule_kernel = timing_backend(dev)
+
+    # ---- 9. the DSE runner and Fig 5 --------------------------------
+    schedule_kernel.update(runner_and_fig5(dev))
 
     kernels = [{
         "name": "amm_gather", "route": "cuda",

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -97,6 +98,40 @@ def make_inputs(p: Params) -> dict[str, np.ndarray]:
         "blocks": rng.integers(0, 256, size=(p.n_blocks, 16), dtype=np.uint8),
         "key": rng.integers(0, 256, size=16, dtype=np.uint8),
     }
+
+
+def run_torch(blocks: torch.Tensor, key: np.ndarray) -> torch.Tensor:
+    """:func:`encrypt_np` in PyTorch, vectorized over blocks ([B, 16]
+    uint8), on the device of ``blocks``."""
+    dev = blocks.device
+    rk = torch.from_numpy(expand_key(key)).to(dev)
+    sbox = torch.from_numpy(_SBOX).to(dev)
+    shift = torch.from_numpy(_SHIFT).to(dev)
+
+    def xtime(b):
+        # torch.where with Python ints gives int64: back to uint8 before
+        # the next XOR
+        return ((b << 1) ^ torch.where((b & 0x80) != 0, 0x1B, 0)
+                ).to(torch.uint8)
+
+    def mix(s):
+        s4 = s.reshape(-1, 4, 4)
+        a = [s4[..., i] for i in range(4)]
+        t = a[0] ^ a[1] ^ a[2] ^ a[3]
+        cols = [a[i] ^ t ^ xtime(a[i] ^ a[(i + 1) % 4]) for i in range(4)]
+        return torch.stack(cols, dim=-1).reshape(-1, 16)
+
+    # the S-box is gathered with long indices: a uint8 index tensor
+    # would be a boolean mask
+    s = blocks ^ rk[0]
+    for rnd in range(1, 10):
+        s = sbox[s.long()]
+        s = s[:, shift]
+        s = mix(s)
+        s = s ^ rk[rnd]
+    s = sbox[s.long()]
+    s = s[:, shift]
+    return s ^ rk[10]
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -36,6 +37,40 @@ def make_inputs(p: Params) -> dict[str, np.ndarray]:
         [np.sort(rng.choice(p.n_nodes, size=int(d), replace=False))
          for d in degs]).astype(np.int64)
     return {"edge_ptr": edge_ptr, "edges": edges}
+
+
+def run_np(edge_ptr: np.ndarray, edges: np.ndarray, n: int,
+           start: int = 0) -> np.ndarray:
+    """Queue BFS; unreached nodes keep the sentinel level ``n``."""
+    level = np.full(n, n, np.int32)
+    level[start] = 0
+    queue = [start]
+    while queue:
+        v = queue.pop(0)
+        for e in range(int(edge_ptr[v]), int(edge_ptr[v + 1])):
+            dst = int(edges[e])
+            if level[dst] == n:
+                level[dst] = level[v] + 1
+                queue.append(dst)
+    return level
+
+
+def run_torch(edge_ptr: np.ndarray, edges: torch.Tensor, n: int,
+              start: int = 0) -> torch.Tensor:
+    """Level-synchronous BFS on the device of ``edges``: ``n`` rounds of
+    scatter-min edge relaxation (equivalent to the queue traversal's
+    level assignment).  ``edge_ptr`` is static (numpy), like the trace
+    generator's loop bounds."""
+    dev = edges.device
+    edge_ptr = np.asarray(edge_ptr)
+    src = torch.from_numpy(np.repeat(np.arange(n), np.diff(edge_ptr))).to(dev)
+    dst = edges.long()
+    level = torch.full((n,), n, dtype=torch.int32, device=dev)
+    level[start] = 0
+    for h in range(n):
+        cand = torch.where(level[src] == h, h + 1, n).to(torch.int32)
+        level.scatter_reduce_(0, dst, cand, "amin", include_self=True)
+    return level
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

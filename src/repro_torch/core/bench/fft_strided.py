@@ -10,8 +10,10 @@ bit-reversed order.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -22,6 +24,39 @@ class Params:
 
 
 TINY = Params(n=32)
+
+
+def _bit_reverse_perm(n: int) -> np.ndarray:
+    bits = int(np.log2(n))
+    idx = np.arange(n)
+    out = np.zeros(n, np.int64)
+    for b in range(bits):
+        out |= ((idx >> b) & 1) << (bits - 1 - b)
+    return out
+
+
+def run_torch(x: torch.Tensor) -> torch.Tensor:
+    """DIF butterflies on the device of ``x`` (complex); returns the
+    spectrum in *bit-reversed* order.  The twiddles are complex64 from
+    float32 angles, as the reference computes them without x64."""
+    n = x.shape[0]
+    span = n // 2
+    while span >= 1:
+        xr = x.reshape(-1, 2 * span)
+        a, b = xr[:, :span], xr[:, span:]
+        j = torch.arange(span, dtype=torch.float32, device=x.device)
+        ang = -2.0 * math.pi * j * (n // (2 * span)) / n
+        w = torch.polar(torch.ones_like(ang), ang)
+        xr = torch.cat([a + b, (a - b) * w[None, :]], dim=1)
+        x = xr.reshape(n)
+        span //= 2
+    return x
+
+
+def spectrum(x: torch.Tensor) -> torch.Tensor:
+    """Natural-order FFT via the strided kernel + bit-reversal."""
+    perm = torch.from_numpy(_bit_reverse_perm(x.shape[0])).to(x.device)
+    return run_torch(x)[perm]
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

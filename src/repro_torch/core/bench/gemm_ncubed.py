@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from repro_torch.core.sim import trace as T
 
 
@@ -17,6 +19,17 @@ class Params:
 
 
 TINY = Params(n=6)
+
+
+def run_torch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` at the operands' full precision on their device (the
+    reference's ``precision="highest"``).  On the card an f32 product
+    must not run on TF32 tensor cores: the global setting is read, never
+    changed."""
+    if a.is_cuda and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError("gemm_ncubed.run_torch needs TF32 matmuls off "
+                           "(torch.backends.cuda.matmul.allow_tf32)")
+    return a @ b
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

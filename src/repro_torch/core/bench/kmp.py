@@ -9,6 +9,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -44,6 +45,34 @@ def failure_table(pattern: bytes) -> np.ndarray:
             k += 1
         nxt[q] = k
     return nxt
+
+
+def run_np(text: np.ndarray, pattern: bytes = PATTERN) -> int:
+    nxt = failure_table(pattern)
+    q = matches = 0
+    pat = np.frombuffer(pattern, np.uint8)
+    m = len(pat)
+    for c in text:
+        while q > 0 and pat[q] != c:
+            q = int(nxt[q - 1])
+        if pat[q] == c:
+            q += 1
+        if q == m:
+            matches += 1
+            q = int(nxt[q - 1])
+    return matches
+
+
+def run_torch(text: torch.Tensor, pattern: bytes = PATTERN) -> torch.Tensor:
+    """The number of matches :func:`run_np`'s DFA counts, on the device
+    of ``text`` (uint8).  The DFA counts overlapping occurrences, so
+    comparing every ``len(pattern)``-byte window of the text with the
+    pattern gives the same count with no step per character."""
+    m = len(pattern)
+    if text.shape[0] < m:
+        return torch.zeros((), dtype=torch.int64, device=text.device)
+    pat = torch.tensor(list(pattern), dtype=torch.uint8, device=text.device)
+    return (text.unfold(0, m, 1) == pat).all(dim=1).sum()
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

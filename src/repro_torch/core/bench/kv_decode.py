@@ -18,8 +18,10 @@ on the request's own length.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -50,6 +52,46 @@ def make_inputs(p: Params) -> dict[str, np.ndarray]:
         # mixed request lengths: each row is at its own decode position
         "lengths": rng.integers(1, p.max_len + 1, p.batch).astype(np.int32),
     }
+
+
+def run_np(q: np.ndarray, k: np.ndarray, v: np.ndarray,
+           lengths: np.ndarray) -> np.ndarray:
+    """Online-softmax (flash) decode, position at a time — the same
+    one-pass recurrence the trace generator models."""
+    b_, h_, d_ = q.shape
+    out = np.zeros((b_, h_, d_), np.float32)
+    scale = 1.0 / np.sqrt(d_)
+    for b in range(b_):
+        for h in range(h_):
+            m = -np.inf
+            den = 0.0
+            acc = np.zeros(d_, np.float64)
+            for pos in range(int(lengths[b])):
+                s = float(q[b, h] @ k[b, h, pos]) * scale
+                m_new = max(m, s)
+                c = np.exp(m - m_new) if np.isfinite(m) else 0.0
+                w = np.exp(s - m_new)
+                den = den * c + w
+                acc = acc * c + w * v[b, h, pos].astype(np.float64)
+                m = m_new
+            out[b, h] = (acc / den).astype(np.float32)
+    return out
+
+
+def run_torch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              lengths: torch.Tensor) -> torch.Tensor:
+    """Masked dense decode attention on the device of ``q`` (the two
+    formulations must agree: online rescaling vs one-shot softmax)."""
+    d_ = q.shape[-1]
+    s_ = k.shape[2]
+    scores = torch.einsum("bhd,bhsd->bhs", q, k) / math.sqrt(d_)
+    valid = (torch.arange(s_, device=q.device)[None, None, :]
+             < lengths[:, None, None])
+    scores = scores.masked_fill(~valid, float("-inf"))
+    w = torch.where(valid,
+                    torch.exp(scores - scores.amax(-1, keepdim=True)), 0.0)
+    w = w / w.sum(-1, keepdim=True)
+    return torch.einsum("bhs,bhsd->bhd", w, v)
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

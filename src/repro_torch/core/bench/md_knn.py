@@ -8,6 +8,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -31,6 +32,21 @@ def make_inputs(p: Params) -> dict[str, np.ndarray]:
          for i in range(p.n_atoms)]
     ).astype(np.int32)  # an atom is never its own neighbour (r2 > 0)
     return {"position": pos, "neighbor_list": nl}
+
+
+def run_torch(position: torch.Tensor, neighbor_list: torch.Tensor
+              ) -> torch.Tensor:
+    """LJ force accumulation (MachSuite constants lj1=1.5, lj2=2.0) on
+    the device of ``position``."""
+    lj1, lj2 = 1.5, 2.0
+    pi = position[:, None, :]                       # [A,1,3]
+    pj = position[neighbor_list.long()]             # [A,K,3]
+    d = pi - pj
+    r2inv = 1.0 / (d * d).sum(dim=-1)               # [A,K]
+    r6inv = r2inv * r2inv * r2inv
+    potential = r6inv * (lj1 * r6inv - lj2)
+    force = r2inv * potential
+    return (force[..., None] * d).sum(dim=1)        # [A,3]
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -59,6 +60,53 @@ def _route_np(logits: np.ndarray, top_k: int):
     top_g = np.take_along_axis(gates, top_e, axis=1)
     top_g = top_g / np.maximum(top_g.sum(axis=1, keepdims=True), 1e-9)
     return top_g, top_e
+
+
+def run_np(logits: np.ndarray, x: np.ndarray, w_exp: np.ndarray,
+           top_k: int, capacity_factor: float) -> np.ndarray:
+    t_, e_ = logits.shape
+    cap = max(int(capacity_factor * t_ * top_k / e_), 1)
+    top_g, top_e = _route_np(logits, top_k)
+    counts = np.zeros(e_, np.int64)
+    y = np.zeros(t_, np.float32)
+    for t in range(t_):
+        for j in range(top_k):
+            e = int(top_e[t, j])
+            pos = counts[e]
+            counts[e] += 1
+            if pos < cap:                       # over capacity: dropped
+                y[t] += top_g[t, j] * x[t] * w_exp[e]
+    return y
+
+
+def run_torch(logits: torch.Tensor, x: torch.Tensor, w_exp: torch.Tensor,
+              top_k: int, capacity_factor: float) -> torch.Tensor:
+    """The sort-free dispatch-table formulation (one row) on the device
+    of ``logits``.  Over-capacity entries go to a sentinel slot
+    ``e * cap`` that is sliced off; the per-token sum is an
+    ``index_add_``, whose float atomics on CUDA are unordered."""
+    t_, e_ = logits.shape
+    dev = logits.device
+    cap = max(int(capacity_factor * t_ * top_k / e_), 1)
+    gates = torch.softmax(logits.to(torch.float32), dim=-1)
+    top_g, top_e = torch.topk(gates, top_k, dim=-1)
+    top_g = top_g / top_g.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_e = top_e.reshape(t_ * top_k)
+    onehot = torch.nn.functional.one_hot(flat_e, e_)
+    pos = torch.cumsum(onehot, dim=0) - 1
+    slot = pos.gather(1, flat_e[:, None])[:, 0]
+    dest = torch.where(slot < cap, flat_e * cap + slot, e_ * cap)
+    token_ids = torch.arange(t_, device=dev).repeat_interleave(top_k)
+    table = torch.full((e_ * cap + 1,), t_, dtype=torch.int64, device=dev)
+    table[dest] = token_ids
+    gate_tbl = torch.zeros(e_ * cap + 1, dtype=torch.float32, device=dev)
+    gate_tbl[dest] = top_g.reshape(-1)
+    table, gate_tbl = table[:-1], gate_tbl[:-1]
+    x_pad = torch.cat([x, x.new_zeros(1)])
+    contrib = (x_pad[table] * w_exp.repeat_interleave(cap) * gate_tbl
+               ).to(torch.float32)
+    out = torch.zeros(t_ + 1, dtype=torch.float32, device=dev)
+    return out.index_add_(0, table, contrib)[:t_]
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

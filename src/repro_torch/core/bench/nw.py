@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -34,6 +35,66 @@ def make_inputs(p: Params) -> dict[str, np.ndarray]:
         "seq_a": rng.integers(0, 4, size=p.alen).astype(np.uint8),
         "seq_b": rng.integers(0, 4, size=p.blen).astype(np.uint8),
     }
+
+
+def _cell(diag: int, up: int, left: int, match: bool) -> tuple[int, int]:
+    """Score + pointer for one DP cell (diag > up > left tie order)."""
+    d = diag + (MATCH if match else MISMATCH)
+    u = up + GAP
+    l = left + GAP
+    if d >= u and d >= l:
+        return d, ALIGN
+    if u >= l:
+        return u, SKIP_UP
+    return l, SKIP_LEFT
+
+
+def run_np(seq_a: np.ndarray, seq_b: np.ndarray) -> tuple[np.ndarray,
+                                                          np.ndarray]:
+    """Full DP fill; returns (score matrix, traceback pointers), both
+    ``[blen+1, alen+1]``."""
+    a_n, b_n = seq_a.shape[0], seq_b.shape[0]
+    m = np.zeros((b_n + 1, a_n + 1), np.int32)
+    ptr = np.zeros((b_n + 1, a_n + 1), np.int8)
+    m[0, :] = GAP * np.arange(a_n + 1)
+    m[:, 0] = GAP * np.arange(b_n + 1)
+    for b in range(1, b_n + 1):
+        for a in range(1, a_n + 1):
+            s, d = _cell(int(m[b - 1, a - 1]), int(m[b - 1, a]),
+                         int(m[b, a - 1]), seq_a[a - 1] == seq_b[b - 1])
+            m[b, a] = s
+            ptr[b, a] = d
+    return m, ptr
+
+
+def run_torch(seq_a: torch.Tensor, seq_b: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The DP fill as an anti-diagonal wavefront on the device of
+    ``seq_a``: the cells of diagonal ``b + a = d`` read only diagonals
+    ``d - 1`` and ``d - 2``, so ``alen + blen - 1`` steps fill the
+    matrix.  Bit-identical to :func:`run_np` including the diag > up >
+    left tie order."""
+    dev = seq_a.device
+    a_n, b_n = seq_a.shape[0], seq_b.shape[0]
+    m = torch.zeros((b_n + 1, a_n + 1), dtype=torch.int32, device=dev)
+    ptr = torch.zeros((b_n + 1, a_n + 1), dtype=torch.int8, device=dev)
+    m[0, :] = GAP * torch.arange(a_n + 1, dtype=torch.int32, device=dev)
+    m[:, 0] = GAP * torch.arange(b_n + 1, dtype=torch.int32, device=dev)
+    sa, sb = seq_a.long(), seq_b.long()
+    for d in range(2, a_n + b_n + 1):
+        b = torch.arange(max(1, d - a_n), min(b_n, d - 1) + 1, device=dev)
+        a = d - b
+        dg = m[b - 1, a - 1] + torch.where(sa[a - 1] == sb[b - 1], MATCH,
+                                           MISMATCH)
+        u = m[b - 1, a] + GAP
+        lf = m[b, a - 1] + GAP
+        take_d = (dg >= u) & (dg >= lf)
+        m[b, a] = torch.where(take_d, dg,
+                              torch.where(u >= lf, u, lf)).to(torch.int32)
+        ptr[b, a] = torch.where(take_d, ALIGN,
+                                torch.where(u >= lf, SKIP_UP, SKIP_LEFT)
+                                ).to(torch.int8)
+    return m, ptr
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

@@ -15,6 +15,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -52,6 +53,37 @@ def make_inputs(p: Params) -> dict[str, np.ndarray]:
             counter * p.page_size).astype(np.float32),
         "weights": rng.standard_normal(max_len).astype(np.float32),
     }
+
+
+def run_np(block_table: np.ndarray, lengths: np.ndarray,
+           kv_pool: np.ndarray, weights: np.ndarray,
+           page_size: int) -> np.ndarray:
+    """Token gather through the block table + weighted reduction (the
+    attention-value accumulation with scores precomputed)."""
+    out = np.zeros(lengths.shape[0], np.float32)
+    for b in range(lengths.shape[0]):
+        acc = 0.0
+        for t in range(int(lengths[b])):
+            pp = int(block_table[b, t // page_size])
+            acc += kv_pool[pp * page_size + t % page_size] * weights[t]
+        out[b] = acc
+    return out
+
+
+def run_torch(block_table: torch.Tensor, lengths: torch.Tensor,
+              kv_pool: torch.Tensor, weights: torch.Tensor,
+              page_size: int) -> torch.Tensor:
+    """Token gather through the block table + weighted reduction on the
+    device of ``kv_pool``; masked positions read index 0."""
+    n_seqs, max_pages = block_table.shape
+    max_len = max_pages * page_size
+    t = torch.arange(max_len, device=kv_pool.device)
+    pp = block_table.long().gather(
+        1, (t // page_size)[None, :].expand(n_seqs, max_len))
+    mask = t[None, :] < lengths[:, None]
+    idx = torch.where(mask, pp * page_size + t[None, :] % page_size, 0)
+    vals = kv_pool[idx] * weights[None, :]
+    return torch.where(mask, vals, 0.0).sum(dim=1)
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -31,6 +32,44 @@ TINY = Params(n=48, value_bits=6)
 def make_input(p: Params) -> np.ndarray:
     rng = np.random.default_rng(p.seed)
     return rng.integers(0, 1 << p.value_bits, size=p.n, dtype=np.int32)
+
+
+def n_passes(p: Params) -> int:
+    return (p.value_bits + RADIX_BITS - 1) // RADIX_BITS
+
+
+def run_np(a: np.ndarray, value_bits: int) -> np.ndarray:
+    a = a.copy()
+    for shift in range(0, value_bits, RADIX_BITS):
+        digit = (a >> shift) & (N_BUCKETS - 1)
+        bucket = np.bincount(digit, minlength=N_BUCKETS)
+        offset = np.zeros(N_BUCKETS, np.int64)
+        np.cumsum(bucket[:-1], out=offset[1:])
+        out = np.empty_like(a)
+        for x, d in zip(a, digit):
+            out[offset[d]] = x
+            offset[d] += 1
+        a = out
+    return a
+
+
+def run_torch(a: torch.Tensor, value_bits: int) -> torch.Tensor:
+    """Counting sort per 2-bit digit on the device of ``a``: one-hot
+    histogram + exclusive scan + rank-within-digit scatter (a stable LSD
+    radix sort)."""
+    rows = torch.arange(a.shape[0], device=a.device)
+    buckets = torch.arange(N_BUCKETS, device=a.device)
+    for shift in range(0, value_bits, RADIX_BITS):
+        digit = ((a >> shift) & (N_BUCKETS - 1)).long()
+        onehot = (digit[:, None] == buckets[None, :]).long()
+        counts = onehot.sum(dim=0)
+        offset = torch.cumsum(counts, dim=0) - counts   # exclusive scan
+        rank = torch.cumsum(onehot, dim=0) - onehot     # stable in digit
+        pos = offset[digit] + rank[rows, digit]
+        out = torch.empty_like(a)
+        out[pos] = a
+        a = out
+    return a
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

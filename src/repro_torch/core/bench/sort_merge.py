@@ -8,6 +8,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -24,6 +25,11 @@ TINY = Params(n=64)
 def make_input(p: Params) -> np.ndarray:
     rng = np.random.default_rng(p.seed)
     return rng.integers(0, 1 << 20, size=p.n, dtype=np.int32)
+
+
+def run_torch(x: torch.Tensor) -> torch.Tensor:
+    """The sorted keys, on the device of ``x``."""
+    return torch.sort(x).values
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

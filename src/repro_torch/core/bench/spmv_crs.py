@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -39,6 +40,32 @@ def make_inputs(p: Params) -> dict[str, np.ndarray]:
         "row_ptr": row_ptr,
         "vec": rng.standard_normal(p.n),
     }
+
+
+def run_np(vals: np.ndarray, cols: np.ndarray, row_ptr: np.ndarray,
+           vec: np.ndarray) -> np.ndarray:
+    out = np.zeros(row_ptr.shape[0] - 1, vals.dtype)
+    for i in range(out.shape[0]):
+        acc = 0.0
+        for j in range(int(row_ptr[i]), int(row_ptr[i + 1])):
+            acc += vals[j] * vec[cols[j]]
+        out[i] = acc
+    return out
+
+
+def run_torch(vals: torch.Tensor, cols: torch.Tensor, row_ptr: np.ndarray,
+              vec: torch.Tensor) -> torch.Tensor:
+    """CRS y = A @ x as a gather + segment ``index_add_`` on the device
+    of ``vals``.  ``row_ptr`` is static (numpy): the row segmentation is
+    part of the matrix structure, like the trace generator's loop
+    bounds."""
+    row_ptr = np.asarray(row_ptr)
+    n = row_ptr.shape[0] - 1
+    rows = torch.from_numpy(np.repeat(np.arange(n), np.diff(row_ptr))
+                            ).to(vals.device)
+    contrib = vals * vec[cols.long()]
+    return torch.zeros(n, dtype=vals.dtype, device=vals.device
+                       ).index_add_(0, rows, contrib)
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

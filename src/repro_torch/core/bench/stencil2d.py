@@ -7,6 +7,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -27,6 +28,17 @@ def make_inputs(p: Params) -> dict[str, np.ndarray]:
         "orig": rng.standard_normal((p.rows, p.cols)).astype(np.float32),
         "filter": rng.standard_normal((3, 3)).astype(np.float32),
     }
+
+
+def run_torch(orig: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    """The 3x3 stencil as nine shifted multiply-adds on the device of
+    ``orig``."""
+    r, c = orig.shape
+    out = torch.zeros((r - 2, c - 2), dtype=orig.dtype, device=orig.device)
+    for k1 in range(3):
+        for k2 in range(3):
+            out = out + filt[k1, k2] * orig[k1:k1 + r - 2, k2:k2 + c - 2]
+    return out
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

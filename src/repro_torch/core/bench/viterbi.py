@@ -11,6 +11,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from repro_torch.core.sim import trace as T
 
@@ -34,6 +35,49 @@ def make_inputs(p: Params) -> dict[str, np.ndarray]:
         "transition": rng.uniform(0.1, 5.0, size=(p.n_states, p.n_states)),
         "emission": rng.uniform(0.1, 5.0, size=(p.n_states, p.n_tokens)),
     }
+
+
+def run_np(obs: np.ndarray, init: np.ndarray, transition: np.ndarray,
+           emission: np.ndarray) -> np.ndarray:
+    """Most-likely state path (min-sum Viterbi with backtrack)."""
+    t_n, s_n = obs.shape[0], init.shape[0]
+    llike = np.zeros((t_n, s_n))
+    bptr = np.zeros((t_n, s_n), np.int64)
+    llike[0] = init + emission[:, obs[0]]
+    for t in range(1, t_n):
+        for curr in range(s_n):
+            trans = llike[t - 1] + transition[:, curr]
+            best = int(np.argmin(trans))
+            bptr[t, curr] = best
+            llike[t, curr] = trans[best] + emission[curr, obs[t]]
+    path = np.zeros(t_n, np.int64)
+    path[-1] = int(np.argmin(llike[-1]))
+    for t in range(t_n - 2, -1, -1):
+        path[t] = bptr[t + 1, path[t + 1]]
+    return path
+
+
+def run_torch(obs: torch.Tensor, init: torch.Tensor,
+              transition: torch.Tensor, emission: torch.Tensor
+              ) -> torch.Tensor:
+    """Forward pass, one step at a time, and the backpointer chase on the
+    device of ``init``; exact against :func:`run_np` (``torch.argmin``
+    takes the first minimum, as ``np.argmin`` does)."""
+    obs = obs.long()
+    t_n = obs.shape[0]
+    ll = init + emission[:, obs[0]]
+    bptrs = []
+    for t in range(1, t_n):
+        trans = ll[:, None] + transition            # [prev, curr]
+        bptrs.append(torch.argmin(trans, dim=0))    # per curr
+        ll = trans.amin(dim=0) + emission[:, obs[t]]
+    path = torch.empty(t_n, dtype=torch.int64, device=init.device)
+    state = torch.argmin(ll)
+    path[-1] = state
+    for t in range(t_n - 2, -1, -1):
+        state = bptrs[t][state]
+        path[t] = state
+    return path
 
 
 def gen_trace(p: Params = Params()) -> T.Trace:

@@ -12,10 +12,12 @@ The names here are copies of the JAX package's ``core/dse/sweep.py``
 :class:`DSEPoint`, :func:`schedule_config_for`,
 :func:`point_from_schedule`; ``tests/test_torch_fault.py`` and
 ``tests/test_torch_sched_copies.py`` hold them equal to the reference),
-plus :func:`sweep_batched`, the port's sweep: the whole ``designs x
-unrolls`` grid of one trace scheduled by the batched timing backend,
-one ``cycle_lanes`` launch per ``batch_lanes`` points.  The reference's
-multi-process runner and its on-disk cache are not ported.
+plus :func:`evaluate_batched`, the port's point evaluation: any list of
+``(design, unroll)`` points of one trace scheduled by the batched timing
+backend, one ``cycle_lanes`` launch per ``batch_lanes`` points, and
+:func:`sweep_batched`, the whole ``designs x unrolls`` grid through it.
+The cached sweep runner on top of it is
+:mod:`repro_torch.core.dse.runner`.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ from repro_torch.core.sim.prepared import prepare_trace
 from repro_torch.core.sim.scheduler import ScheduleConfig
 
 __all__ = ["DesignPoint", "DEFAULT_DESIGNS", "DEFAULT_UNROLLS", "DSEPoint",
-           "schedule_config_for", "point_from_schedule", "sweep_batched"]
+           "schedule_config_for", "point_from_schedule", "evaluate_batched",
+           "sweep_batched"]
 
 # ScheduleResult / DSEPoint stall-field names, in STALL_KEYS order
 _STALL_FIELDS = tuple(f"{k}_stalls" for k in STALL_KEYS)
@@ -209,25 +212,21 @@ def point_from_schedule(tr, dp: DesignPoint, unroll: int,
     )
 
 
-def sweep_batched(tr, designs: Sequence[DesignPoint] = DEFAULT_DESIGNS,
-                  unrolls: Iterable[int] = DEFAULT_UNROLLS, *,
-                  mem_latency: int = 2, device=None,
-                  batch_lanes: int = 256) -> list[DSEPoint]:
-    """Evaluate ``designs x unrolls`` on one trace with the batched
-    timing backend: one ``cycle_lanes`` launch per ``batch_lanes``
-    points, costed on the host by :func:`point_from_schedule`.
+def evaluate_batched(tr, grid: "Sequence[tuple[DesignPoint, int]]", *,
+                     mem_latency: int = 2, device=None,
+                     batch_lanes: int = 256) -> list[DSEPoint]:
+    """Evaluate the ``(design, unroll)`` points of ``grid`` on one trace
+    with the batched timing backend: one ``cycle_lanes`` launch per
+    ``batch_lanes`` points (``schedule_config_for`` ->
+    ``schedule_batched``), each result costed on the host by
+    :func:`point_from_schedule`.  Points come back in ``grid`` order.
     ``batch_lanes`` only bounds the device memory of one launch (the
-    lanes' workspace grows with the trace), as the reference runner's
-    does; the kernel takes any lane count, and the default grid (80
-    points) is one launch.
-
-    Points come back ``designs``-major, ``unrolls``-minor, as the
-    reference's ``run_sweep`` orders them.  ``device=None`` runs on the
-    CUDA device, ``device="cpu"`` on the kernel's plain version."""
+    lanes' workspace grows with the trace); the kernel takes any lane
+    count.  ``device=None`` runs on the CUDA device, ``device="cpu"`` on
+    the kernel's plain version."""
     from repro_torch.core.sim.batched_cycle import schedule_batched
 
     pt = prepare_trace(tr)
-    grid = [(dp, u) for dp in designs for u in unrolls]
     points: list[DSEPoint] = []
     for lo in range(0, len(grid), batch_lanes):
         chunk = grid[lo:lo + batch_lanes]
@@ -237,3 +236,19 @@ def sweep_batched(tr, designs: Sequence[DesignPoint] = DEFAULT_DESIGNS,
         points += [point_from_schedule(pt, dp, u, cfg, res)
                    for (dp, u), cfg, res in zip(chunk, cfgs, scheds)]
     return points
+
+
+def sweep_batched(tr, designs: Sequence[DesignPoint] = DEFAULT_DESIGNS,
+                  unrolls: Iterable[int] = DEFAULT_UNROLLS, *,
+                  mem_latency: int = 2, device=None,
+                  batch_lanes: int = 256) -> list[DSEPoint]:
+    """Evaluate ``designs x unrolls`` on one trace with
+    :func:`evaluate_batched` (the default grid, 80 points, is one
+    launch).
+
+    Points come back ``designs``-major, ``unrolls``-minor, as the
+    reference's ``run_sweep`` orders them.  ``device=None`` runs on the
+    CUDA device, ``device="cpu"`` on the kernel's plain version."""
+    grid = [(dp, u) for dp in designs for u in unrolls]
+    return evaluate_batched(tr, grid, mem_latency=mem_latency,
+                            device=device, batch_lanes=batch_lanes)

@@ -1,4 +1,5 @@
-"""Weinberg spatial-locality metric (paper eq. 1), numpy form.
+"""Weinberg spatial-locality metric (paper eq. 1): a numpy form and a
+PyTorch form that computes on the device (they agree to rounding).
 
     L_spatial = sum_{stride=1..inf} P(stride) / stride
 
@@ -12,6 +13,9 @@ transition.  The planner scores its streams with it, and
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
 
 
 def spatial_locality_np(addrs_bytes: np.ndarray) -> float:
@@ -29,6 +33,30 @@ def spatial_locality_np(addrs_bytes: np.ndarray) -> float:
     # Normalize by the number of *transitions* (incl. stride-0 ones), so
     # temporally-repeated references dilute spatial locality as in Weinberg.
     return float(total / (a.size - 1))
+
+
+def spatial_locality_torch(addrs_bytes, *, device=None) -> float:
+    """:func:`spatial_locality_np` computed by PyTorch on a device (the
+    counterpart of the JAX package's ``spatial_locality_jax``).
+
+    ``addrs_bytes`` is a tensor, computed on its own device unless
+    ``device`` names another, or an array, moved to ``device`` (``None``:
+    the CUDA device).  The strides are differences of int64 addresses, so
+    addresses above 2**31 keep their exact strides; their reciprocals
+    are float64.  Returns a Python float.
+    """
+    if isinstance(addrs_bytes, torch.Tensor) and device is None:
+        dev = addrs_bytes.device
+    else:
+        dev = resolve_device(device)
+    a = torch.as_tensor(addrs_bytes).to(dev, torch.int64).reshape(-1)
+    if a.numel() < 2:
+        return 0.0
+    strides = torch.diff(a).abs()
+    contrib = torch.where(strides > 0,
+                          1.0 / strides.clamp_min(1).to(torch.float64), 0.0)
+    # normalised by the number of transitions, stride-0 ones included
+    return float(contrib.sum() / (a.numel() - 1))
 
 
 def per_array_locality(addrs_bytes: np.ndarray,

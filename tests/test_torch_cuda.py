@@ -688,3 +688,120 @@ def test_cycle_lanes_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         cycle_lanes(*args[:9], args[9].cpu(), *args[10:],
                     scan_slots=sc.scan_slots, **sizes)
+
+
+# ---- the sweep runner, its audit and the locality metric on the card ----
+BENCH_NAMES = ("fft_strided", "gemm_ncubed", "kmp", "md_knn", "sort_merge",
+               "stencil2d", "aes", "spmv_crs", "bfs_queue", "nw", "viterbi",
+               "radix_sort", "kv_decode", "paged_kv", "moe_route")
+
+
+def _golden_grid(bench):
+    """The TINY golden rows of ``bench``: the prepared trace, the designs
+    and unrolls of its grid (designs-major), and each row folded into the
+    DSEPoint the runner must return."""
+    from _torch_sched_util import DESIGNS, golden_configs
+    from repro_torch.core.dse.sweep import point_from_schedule
+    from repro_torch.core.sim import ScheduleResult
+
+    pt, rows, cfgs = golden_configs(bench)
+    labels = {g["design"] for g in rows}
+    designs = [dp for label, dp in DESIGNS.items() if label in labels]
+    unrolls = tuple(sorted({g["unroll"] for g in rows}))
+    folded = {(g["design"], g["unroll"]): point_from_schedule(
+        pt, DESIGNS[g["design"]], g["unroll"], cfg, ScheduleResult(
+            per_array_accesses={},
+            **{k: v for k, v in g.items()
+               if k not in ("bench", "design", "unroll")}))
+        for g, cfg in zip(rows, cfgs)}
+    assert len(folded) == len(designs) * len(unrolls)
+    want = [folded[(dp.label, u)] for dp in designs for u in unrolls]
+    return pt, designs, unrolls, want
+
+
+def _same_points(got, want):
+    """Equal points; avg_mem_parallelism within the golden file's 1e-9."""
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        ra, rb = a.row(), b.row()
+        assert abs(ra.pop("avg_mem_parallelism")
+                   - rb.pop("avg_mem_parallelism")) < 1e-9
+        assert ra == rb
+
+
+@pytest.mark.parametrize("bench", BENCH_NAMES)
+def test_run_sweep_on_the_card_matches_golden_rows(cuda, bench, tmp_path):
+    from repro_torch.core.dse import runner
+    from repro_torch.kernels.cycle_lanes import cycle_lanes
+
+    pt, designs, unrolls, want = _golden_grid(bench)
+    cycle_lanes.launches = 0
+    got = runner.run_sweep(pt, designs, unrolls, cache_dir=tmp_path)
+    assert cycle_lanes.launches == 1
+    _same_points(got, want)
+    cache = runner.SweepCache(tmp_path)
+    assert runner.run_sweep(pt, designs, unrolls, cache=cache) == got
+    assert (cache.hits, cache.misses) == (len(got), 0)
+
+
+@pytest.mark.parametrize("bench", ["paged_kv", "kmp", "aes"])
+def test_legality_pass_on_the_card(cuda, bench, tmp_path):
+    """The audit re-schedules the points on the card with event logs,
+    one launch a ``batch_lanes`` chunk: 0 violations; an edited cache
+    entry fails it."""
+    import hashlib
+    import json
+
+    from repro_torch.core.dse import runner
+    from repro_torch.core.verify import LegalityError
+    from repro_torch.kernels.cycle_lanes import cycle_lanes
+
+    pt, designs, unrolls, want = _golden_grid(bench)
+    cycle_lanes.launches = 0
+    got = runner.run_sweep(pt, designs, unrolls, cache_dir=tmp_path,
+                           check=True, batch_lanes=16)
+    n = len(designs) * len(unrolls)
+    assert cycle_lanes.launches == 2 * -(-n // 16)
+    _same_points(got, want)
+    key = runner.point_key(pt.fingerprint, designs[-1], unrolls[-1], 2)
+    path = runner.SweepCache(tmp_path)._path(key)
+    entry = json.loads(path.read_text())
+    entry["point"]["cycles"] -= 1
+    entry["sha256"] = hashlib.sha256(json.dumps(
+        entry["point"], sort_keys=True).encode()).hexdigest()
+    path.write_text(json.dumps(entry))
+    with pytest.raises(LegalityError, match="counter"):
+        runner.run_sweep(pt, designs, unrolls, cache_dir=tmp_path,
+                         check=True)
+
+
+def test_spatial_locality_torch_on_the_card(cuda):
+    from repro_torch.core.bench import BENCHMARKS, get_trace
+    from repro_torch.core.locality import (spatial_locality_np,
+                                           spatial_locality_torch)
+
+    base = np.int64(2) ** 40
+    addrs = base + np.arange(0, 8000, 8, dtype=np.int64)
+    assert abs(spatial_locality_torch(addrs) - 1 / 8) < 1e-9
+    t = torch.from_numpy(addrs).to(cuda)
+    assert abs(spatial_locality_torch(t) - 1 / 8) < 1e-9
+    for name in BENCHMARKS:
+        a, ids = get_trace(name).mem_addrs_and_arrays()
+        for aid in np.unique(ids):
+            s = a[ids == aid]
+            assert abs(spatial_locality_torch(torch.from_numpy(s).to(cuda))
+                       - spatial_locality_np(s)) < 1e-9, (name, aid)
+
+
+@pytest.mark.parametrize("bench", BENCH_NAMES)
+def test_run_torch_on_the_card_holds_to_numpy(cuda, bench):
+    """Each benchmark's ``run_torch`` on the card at TINY, held to its
+    numpy reference at the tolerance of ``tests/_torch_bench_calls.py``
+    (exact for the integer and byte benchmarks)."""
+    from _torch_bench_calls import bench_case, holds
+    from repro_torch.core.bench import BENCHMARKS
+
+    call, want = bench_case(bench, BENCHMARKS[bench].TINY, cuda)
+    got = call()
+    assert all(g.is_cuda for g in got)
+    assert holds(bench, got, want)

@@ -87,5 +87,6 @@ def test_the_timing_backend_modules_are_scanned():
                  "core/sim/arbiter.py", "core/sim/trace.py",
                  "core/bench/__init__.py", "core/bench/aes.py",
                  "core/dse/sweep.py", "core/dse/pareto.py",
-                 "kernels/cycle_lanes.py"):
+                 "core/dse/runner.py", "core/dse/ratio.py",
+                 "core/locality.py", "kernels/cycle_lanes.py"):
         assert name in files, name
