@@ -108,7 +108,36 @@ fails:
    --check`` in a subprocess: its CSV rows equal to the points of (a),
    its ``#`` lines printed; (f) every benchmark's ``run_torch`` on the
    card at ``Params()`` against its numpy reference
-   (``tests/_torch_bench_calls.py``), with its device time.
+   (``tests/_torch_bench_calls.py``), with its device time;
+10. the attention families at full width, random weights from seed 0,
+   with every kernel's launch count set to 0 before each path and read
+   after it (the attention path runs none of the port's kernels, and
+   each count must stay 0): (a) qwen3-1.7b (28 layers, d_model 2048,
+   Hq 16, Hkv 8, head dim 128, vocab 151936, nothing cut) through
+   ``repro_torch.launch.serve.main`` with batch 8, prompt 4096 and 16
+   greedy steps; then, with the same weights, the prefill and decode
+   times (host clock, fenced) beside their bounds (the prefill's bf16
+   products at the bf16 peak plus its f32 block-scan attention, every
+   block computed, at the f32 peak; the decode step's f32 params and
+   bf16 K/V at the HBM rate), the decode step's and the prefill's busy
+   share and top device operations (``torch.profiler``); with the layer
+   weights rounded through bf16, prefill-then-decode against ``forward``
+   over t+1 tokens at B 2 x S 512 within 2e-2 in bf16 (the absolute term
+   relative to the logits' scale, ``hold_logits``) and 1e-3 in f32,
+   and an f32 prefill plus three decode steps on the card against the
+   port on the CPU at B 1 x S 32 within 1e-3, the third at
+   ``cache_len == S_max``, then the K/V caches; (b) minicpm3-4b (MLA, 62
+   layers) served with ``--mla-absorb`` at batch 4, prompt 1024, 8
+   steps, then decoded 8 steps with and without the absorption from
+   clones of one prefill's cache (the same tokens fed): bf16 logits
+   within 2e-2, one f32 step within 1e-4, both step times; (c)
+   moonshot-v1-16b-a3b (MoE, 64 experts, top-6) at full width with 4 of
+   its 48 layers (48 would not fit the card): prefill and decode times
+   at batch 4, prompt 1024, 8 steps; a finite ``aux`` from ``forward``;
+   prefill-then-decode against ``forward`` at B 2 x S 256 within 2e-2
+   in bf16 and 1e-3 in f32 at a capacity that drops nothing, and, for
+   the record, the gap at the published capacity, where the forward
+   drops choices that the decode keeps.
 
 Every time is a median of device time between CUDA events (see
 ``time_ms``).  It then prints the ``kernels`` JSON line (kernel, plain,
@@ -186,6 +215,20 @@ AUDIT_BENCHES = ("bfs_queue", "paged_kv")
 CLI_BENCH = "md_knn"
 PHASES = ("retire", "rank", "FU issue + candidates", "deferral scan",
           "clock")              # cycle_lanes' profiled phases
+# phase 10: the attention families, each at full width
+BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
+ATTN_BATCH, ATTN_PROMPT, ATTN_GEN = 8, 4096, 16      # qwen3-1.7b
+CHECK_BATCH, CHECK_PROMPT = 2, 512    # prefill-then-decode vs forward
+CPU_BATCH, CPU_PROMPT = 1, 32         # the card against the CPU, f32
+MLA_ARCH = "minicpm3-4b"
+MLA_BATCH, MLA_PROMPT, MLA_GEN = 4, 1024, 8
+# absorbed against expanded MLA decode in f32: tests/test_models.py's
+# limit for the two modes
+MLA_F32_TOL = 1e-4
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_LAYERS = 4                # of 48: 553.6 M expert params a layer
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 1024, 8
+MOE_CHECK_PROMPT = 256
 
 
 def check(ok: bool, msg: str) -> None:
@@ -228,6 +271,23 @@ def hold_close(got: torch.Tensor, want: torch.Tensor, atol: float,
     check(share <= 1.0, f"{what}: error {err.max().item():.3g} beyond "
           f"atol {atol:g} + rtol {rtol:g} * |want|")
     return err.max().item(), want.float().abs().max().item(), share
+
+
+def hold_logits(got: torch.Tensor, want: torch.Tensor, tol: float,
+                what: str) -> "tuple[float, float, float, float]":
+    """``hold_close`` for bf16 logits, its absolute term taken relative
+    to the logits' scale: ``|got - want| <= tol * max(1, max|want|) +
+    tol * |want|``.  bf16 roundings upstream move every logit of a
+    vector by about the same amount, a bf16 step of its largest
+    entries: at moonshot's logits (magnitude ~4, an untied head) one
+    step is 0.031, above a 2e-2 floor, on entries of every size.  At
+    scales up to 1 this is ``hold_close``.  Returns its numbers, the
+    absolute term, and for the record the share of the limit that a flat
+    ``tol`` absolute term would give."""
+    atol = tol * max(1.0, want.float().abs().max().item())
+    flat = ((got.float() - want.float()).abs()
+            / (tol + tol * want.float().abs())).max().item()
+    return hold_close(got, want, atol, tol, what) + (atol, flat)
 
 
 def bound_ms(n_bytes: float, n_flops: float = 0.0,
@@ -1010,6 +1070,338 @@ def runner_and_fig5(dev: torch.device) -> dict:
             "runner_warm_s": sum(warm_s.values())}
 
 
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from _leaves(v) if isinstance(v, dict) else (v,)
+
+
+def print_top(what: str, events: "dict[str, tuple[int, float]]",
+              step_ms: float, top: int = 8) -> float:
+    """Print a profiled run's device time, its busy share of the
+    unprofiled ``step_ms`` and its largest device operations; return the
+    device ms."""
+    total = sum(ms for _, ms in events.values())
+    check(total > 0, f"{what}: the profiler recorded no device time")
+    print(f"{what} (profiler, device): {total:.3f} ms of device time in "
+          f"{sum(n for n, _ in events.values())} launches, busy "
+          f"{total / step_ms:.1%} of the unprofiled {step_ms:.3f} ms")
+    for k, (n, ms) in sorted(events.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"  {ms:9.3f} ms {n:6d}x  {k[:90]}")
+    return total
+
+
+def attention_serving(dev: torch.device, kernels: dict) -> None:
+    """Phase 10: the attention families served at full width with random
+    weights from seed 0: (a) qwen3-1.7b (dense GQA) through
+    ``serve.main``, its times, bounds and profiles, prefill-then-decode
+    against forward, the card against the port on the CPU (f32) with a
+    decode at ``cache_len == S_max``; (b) minicpm3-4b (MLA) served with
+    ``--mla-absorb``, then decoded with and without the absorption from
+    one prefill; (c) moonshot-v1-16b-a3b (MoE) with 4 of its 48 layers.
+    ``kernels`` maps each kernel of the port to its wrapper: this path
+    runs none of them, and each count must stay 0."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import (DTypePolicy, count_params, decode_step,
+                                    forward, init_model, prefill)
+    from repro_torch.models.attention import AttnConfig
+    from repro_torch.models.common import tree_map
+
+    policy = DTypePolicy.standard()
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+
+    def no_launch(what: str) -> None:
+        got = {k: w.launches for k, w in kernels.items()}
+        print(f"{what}: kernel launches {got} (the attention path runs "
+              "none of the port's kernels)")
+        check(all(n == 0 for n in got.values()),
+              f"{what} launched a kernel: {got}")
+
+    def zero_counts() -> None:
+        for w in kernels.values():
+            w.launches = 0
+
+    def prompt(arch, b: int, s: int) -> torch.Tensor:
+        """serve.main's prompts: np.random.default_rng(0)."""
+        return torch.from_numpy(np.random.default_rng(0).integers(
+            0, arch.vocab, (b, s))).to(dev, torch.int32)
+
+    def served(name: str, b: int, s: int, g: int, extra=()) -> None:
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve.main(["--arch", name, "--preset", "full", "--batch",
+                          str(b), "--prompt-len", str(s), "--gen", str(g),
+                          *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        no_launch(f"serve {name}")
+        check(out["generated"].shape == (b, g),
+              f"{name}: generated shape {out['generated'].shape}")
+        print(f"serve {' '.join([name, *extra])} full B {b} S {s} gen {g}: "
+              f"{wall:.1f} s in all (init, prefill, decode), "
+              f"{out['tok_per_s']:.1f} tok/s in decode")
+
+    def round_blocks(params: dict) -> None:
+        """The stacked layer weights rounded through bf16, as phase 6:
+        the forward casts every stacked leaf to the compute dtype where
+        prefill and decode cast at each product."""
+        params["blocks"] = tree_map(lambda t: t.to(torch.bfloat16).float(),
+                                    params["blocks"])
+
+    def decode_vs_forward(params, arch, toks, pol):
+        """Token t+1 (the prefill's greedy pick) decoded from the prefill
+        of t tokens, and forward over the t+1: (decode, forward's last
+        position, forward's aux)."""
+        lg, c = prefill(params, arch, {"tokens": toks}, toks.shape[1] + 1,
+                        pol)
+        nxt = torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32)
+        dec, _ = decode_step(params, arch, c, nxt, pol)
+        del c
+        full, aux = forward(params, arch,
+                            {"tokens": torch.cat([toks, nxt], dim=1)}, pol)
+        torch.cuda.synchronize()
+        return dec[:, 0], full[:, -1], aux
+
+    def hold_decode(params, arch, toks, pol, tol: float, what: str):
+        """bf16 logits held by ``hold_logits``, f32 by ``hold_close``."""
+        dec, full, aux = decode_vs_forward(params, arch, toks, pol)
+        msg = f"{what} prefill-then-decode vs forward"
+        if pol.compute == torch.bfloat16:
+            err, scale, share, atol, flat = hold_logits(dec, full, tol, msg)
+            note = f"; a flat atol {tol:g} would read {flat:.3g} of it"
+        else:
+            (err, scale, share), atol = hold_close(dec, full, tol, tol,
+                                                   msg), tol
+            note = ""
+        print(f"{msg} at t+1 = {toks.shape[1] + 1}, B {toks.shape[0]}: max "
+              f"err {err:.3g} (max |logit| {scale:.3g}, {share:.3g} of the "
+              f"limit atol {atol:.3g} + rtol {tol:g} * |logit|{note})")
+        return aux
+
+    # ---- (a) qwen3-1.7b at full width -------------------------------
+    arch = get_arch(ARCH)
+    b, s, g = ATTN_BATCH, ATTN_PROMPT, ATTN_GEN
+    served(ARCH, b, s, g)
+    params = init_model(0, arch, policy, dev)          # serve's weights
+    n_params = count_params(params)
+    tokens = prompt(arch, b, s)
+    prefill_step = make_prefill_step(arch, policy, s + g)
+    decode = make_decode_step(arch, policy)
+    zero_counts()
+    prefill_ms, (logits, cache) = wall_ms(
+        lambda: prefill_step(params, {"tokens": tokens}))
+    check(bool(torch.isfinite(logits).all()), "qwen3 prefill not finite")
+    last = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(g):
+        last, logits, cache = decode(params, cache, last)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / g
+    no_launch(f"{ARCH} prefill and decode")
+    check(bool(torch.isfinite(logits).all()), "qwen3 decode not finite")
+    check(int(cache["len"]) == s + g, "qwen3 cache length")
+
+    # bounds, from this run's shapes
+    L, d, V = arch.n_layers, arch.d_model, arch.padded_vocab
+    hq, hkv, hd = arch.n_heads, arch.n_kv_heads, arch.resolved_head_dim
+    per_layer = sum(t[0].numel() for t in _leaves(params["blocks"])
+                    if t.ndim == 3)           # the layer's matrices
+    blk = AttnConfig.block_kv
+    bf16_flops = 2 * b * s * L * per_layer + 2 * b * d * V
+    f32_flops = L * 2 * 2 * b * hq * s * (-(-s // blk) * blk) * hd
+    kv_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+    # the prefill's products run in bf16 and its attention in f32, each
+    # at its own peak; it reads the params and writes the prompt's K/V
+    pre_ops = (bf16_flops / BF16_FLOPS_PER_S
+               + f32_flops / F32_FLOPS_PER_S) * 1e3
+    pre_bytes = (n_params * 4 + kv_bytes * s / (s + g) + b * s * 4
+                 + b * V * 2) / HBM_BYTES_PER_S * 1e3
+    pre_bound, pre_by = max((pre_ops, "operations"), (pre_bytes, "bytes"))
+    dec_bound, dec_by = bound_ms(n_params * 4 + kv_bytes,
+                                 2 * b * n_params + 4 * b * hq * (s + g) * hd)
+    print(f"serve {ARCH} B {b} S {s}, {n_params / 1e9:.3f} B params "
+          f"({n_params * 4 / 1e9:.2f} GB f32): prefill {prefill_ms:.3f} ms "
+          f"(host clock, fenced, median of 3), decode {decode_ms:.3f} ms a "
+          f"token step (host clock, fenced, {g} steps)")
+    print(f"{ARCH} prefill bound {pre_bound:.3f} ms ({pre_by}: "
+          f"{bf16_flops / 1e12:.3f} TFLOP of bf16 products at "
+          f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s = "
+          f"{bf16_flops / BF16_FLOPS_PER_S * 1e3:.3f} ms, plus "
+          f"{f32_flops / 1e12:.3f} TFLOP of f32 block-scan attention, every "
+          f"block of {blk} computed, causal or not, at "
+          f"{F32_FLOPS_PER_S / 1e12:.0f} TFLOP/s = "
+          f"{f32_flops / F32_FLOPS_PER_S * 1e3:.3f} ms); the prefill takes "
+          f"{prefill_ms / pre_bound:.2f}x it")
+    print(f"{ARCH} decode bound {dec_bound:.4f} ms ({dec_by}: "
+          f"{n_params * 4 / 1e9:.3f} GB of f32 params + "
+          f"{kv_bytes / 1e9:.3f} GB of bf16 K/V at S {s + g}, at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); the step takes "
+          f"{decode_ms / dec_bound:.2f}x it")
+    print_top(f"{ARCH} decode step", device_events(
+        lambda: decode(params, cache, last))[0], decode_ms)
+    del logits, cache
+    torch.cuda.empty_cache()
+    print_top(f"{ARCH} prefill", device_events(
+        lambda: prefill_step(params, {"tokens": tokens}))[0], prefill_ms)
+    torch.cuda.empty_cache()
+
+    round_blocks(params)
+    toks = tokens[:CHECK_BATCH, :CHECK_PROMPT]
+    hold_decode(params, arch, toks, policy, E2E_TOL, f"{ARCH} bf16")
+    hold_decode(params, arch, toks, f32, F32_MODEL_TOL, f"{ARCH} f32")
+    # f32 on the card against the port on the CPU: a prefill, two decode
+    # steps and a third at cache_len == S_max (its row lands in the last
+    # slot), the card's greedy tokens fed to both
+    tok = tokens[:CPU_BATCH, :CPU_PROMPT]
+    cap = CPU_PROMPT + 2
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    lg, c = prefill(params, arch, {"tokens": tok}, cap, f32)
+    lg_cpu, c_cpu = prefill(cpu_params, arch, {"tokens": tok.cpu()}, cap, f32)
+    errs = [hold_close(lg.cpu(), lg_cpu, F32_MODEL_TOL, F32_MODEL_TOL,
+                       f"{ARCH} f32 prefill card vs cpu")]
+    for step in range(3):
+        nxt = torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32)
+        at = int(c["len"])
+        lg, c = decode_step(params, arch, c, nxt, f32)
+        lg_cpu, c_cpu = decode_step(cpu_params, arch, c_cpu, nxt.cpu(), f32)
+        errs.append(hold_close(
+            lg.cpu(), lg_cpu, F32_MODEL_TOL, F32_MODEL_TOL,
+            f"{ARCH} f32 decode at cache_len {at} (S_max {cap}) card vs cpu"))
+    check(int(c["len"]) == cap + 1, "the decode at S_max")
+    for k in ("k", "v"):
+        errs.append(hold_close(c[k].cpu(), c_cpu[k], F32_MODEL_TOL,
+                               F32_MODEL_TOL, f"{ARCH} f32 cache {k}"))
+    print(f"{ARCH} f32 card vs cpu, B {CPU_BATCH} S {CPU_PROMPT}, capacity "
+          f"{cap}: prefill, decodes at cache_len {CPU_PROMPT}, "
+          f"{CPU_PROMPT + 1} and {cap} == S_max (clamped into the last "
+          f"slot), then K and V: max errs "
+          + ", ".join(f"{e[0]:.3g}" for e in errs)
+          + f" (largest share of the limit {max(e[2] for e in errs):.3g})")
+    del params, cpu_params, lg, c, lg_cpu, c_cpu
+    torch.cuda.empty_cache()
+
+    # ---- (b) minicpm3-4b (MLA) at full width ------------------------
+    arch = get_arch(MLA_ARCH)
+    b, s, g = MLA_BATCH, MLA_PROMPT, MLA_GEN
+    served(MLA_ARCH, b, s, g, ("--mla-absorb",))
+    params = init_model(0, arch, policy, dev)
+    tokens = prompt(arch, b, s)
+    zero_counts()
+    pre_ms, (logits, cache) = wall_ms(lambda: make_prefill_step(
+        arch, policy, s + g)(params, {"tokens": tokens}))
+    first = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+    runs, fed = {}, [first]
+    for absorb in (False, True):
+        step = make_decode_step(arch, policy, mla_absorb=absorb)
+        c = {k: v.clone() for k, v in cache.items()}
+        lgs = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(g):
+            nxt, lg, c = step(params, c, fed[i])
+            lgs.append(lg)
+            if not absorb:
+                fed.append(nxt)
+        torch.cuda.synchronize()
+        runs[absorb] = ((time.perf_counter() - t0) * 1e3 / g, lgs)
+        del c
+    no_launch(f"{MLA_ARCH} prefill and decode")
+    mla_errs = [hold_logits(a, e, E2E_TOL,
+                            f"{MLA_ARCH} absorbed vs expanded step {i}")
+                for i, (a, e) in enumerate(zip(runs[True][1], runs[False][1]))]
+    check(all(bool(torch.isfinite(x).all()) for x in runs[True][1]),
+          "minicpm3 absorbed logits not finite")
+    # the same in f32: one step from an f32 prefill, the reference's limit
+    # for the two modes
+    _, c32 = prefill(params, arch, {"tokens": tokens}, s + 1, f32)
+    outs = [decode_step(params, arch, {k: v.clone() for k, v in c32.items()},
+                        first, f32, mla_absorb=absorb)[0]
+            for absorb in (False, True)]
+    f32_err = hold_close(outs[1], outs[0], MLA_F32_TOL, MLA_F32_TOL,
+                         f"{MLA_ARCH} f32 absorbed vs expanded")
+    print(f"{MLA_ARCH} B {b} S {s}, {count_params(params) / 1e9:.3f} B "
+          f"params: prefill {pre_ms:.3f} ms (host clock, median of 3); "
+          f"decode {runs[False][0]:.3f} ms a step expanded, "
+          f"{runs[True][0]:.3f} ms absorbed ({g} steps each from clones of "
+          f"one prefill's cache, the same tokens fed); absorbed vs expanded "
+          f"bf16 logits max err {max(e[0] for e in mla_errs):.3g} over {g} "
+          f"steps (max |logit| {max(e[1] for e in mla_errs):.3g}, "
+          f"{max(e[2] for e in mla_errs):.3g} of the limit atol "
+          f"{max(e[3] for e in mla_errs):.3g} + rtol {E2E_TOL:g} * "
+          f"|logit|; a flat atol {E2E_TOL:g} would read "
+          f"{max(e[4] for e in mla_errs):.3g} of it), f32 one step "
+          f"{f32_err[0]:.3g} "
+          f"({f32_err[2]:.3g} of atol {MLA_F32_TOL:g} + rtol "
+          f"{MLA_F32_TOL:g} * |logit|)")
+    del params, logits, cache, c32, outs, runs
+    torch.cuda.empty_cache()
+
+    # ---- (c) moonshot-v1-16b-a3b (MoE), 4 of its 48 layers ----------
+    full_arch = get_arch(MOE_ARCH)
+    arch = dataclasses.replace(full_arch, n_layers=MOE_LAYERS)
+    expert = full_arch.n_experts * 3 * full_arch.d_model * full_arch.d_ff
+    print(f"{MOE_ARCH}: cut to {MOE_LAYERS} of its {full_arch.n_layers} "
+          f"layers at full width: each layer holds {expert / 1e6:.1f} M "
+          f"expert params ({expert * 4 / 1e9:.2f} GB in f32), so "
+          f"{full_arch.n_layers} layers would need about "
+          f"{full_arch.param_count_estimate() * 4 / 1e9:.0f} GB, more than "
+          "the card holds")
+    b, s, g = MOE_BATCH, MOE_PROMPT, MOE_GEN
+    params = init_model(0, arch, policy, dev)
+    tokens = prompt(arch, b, s)
+    zero_counts()
+    pre_ms, (logits, cache) = wall_ms(lambda: make_prefill_step(
+        arch, policy, s + g)(params, {"tokens": tokens}))
+    last = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+    step = make_decode_step(arch, policy)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(g):
+        last, logits, cache = step(params, cache, last)
+    torch.cuda.synchronize()
+    moe_dec_ms = (time.perf_counter() - t0) * 1e3 / g
+    no_launch(f"{MOE_ARCH} prefill and decode")
+    check(bool(torch.isfinite(logits).all()), "moonshot decode not finite")
+    print(f"{MOE_ARCH} ({MOE_LAYERS} layers) B {b} S {s}, "
+          f"{count_params(params) / 1e9:.3f} B params: prefill {pre_ms:.3f} "
+          f"ms (host clock, median of 3), decode {moe_dec_ms:.3f} ms a "
+          f"token step ({g} steps)")
+    del logits, cache
+    torch.cuda.empty_cache()
+    round_blocks(params)
+    toks = tokens[:CHECK_BATCH, :MOE_CHECK_PROMPT]
+    # A capacity-based MoE drops, in the forward over t+1 tokens, the
+    # last token's choices of experts already full, while the one-token
+    # decode (capacity 1, k distinct experts) drops none: the identity
+    # holds at a capacity that drops nothing, C = S (factor E/k); at the
+    # published 1.25 the reference itself differs (ROADMAP §C)
+    free = dataclasses.replace(arch, moe_capacity_factor=arch.n_experts
+                               / arch.top_k)
+    aux = hold_decode(params, free, toks, policy, E2E_TOL,
+                      f"{MOE_ARCH} bf16, capacity factor E/k")
+    check(bool(torch.isfinite(aux)) and aux.item() > 0,
+          f"moonshot forward aux {aux.item()}")
+    hold_decode(params, free, toks, f32, F32_MODEL_TOL,
+                f"{MOE_ARCH} f32, capacity factor E/k")
+    dec, full, aux = decode_vs_forward(params, arch, toks, policy)
+    check(bool(torch.isfinite(aux)), "moonshot forward aux not finite")
+    print(f"{MOE_ARCH} bf16 at the published capacity factor "
+          f"{arch.moe_capacity_factor}: forward aux {aux.item():.6f} (sum "
+          f"over {MOE_LAYERS} layers), prefill-then-decode vs forward max "
+          f"difference {(dec.float() - full.float()).abs().max().item():.3g} "
+          "(the forward drops choices the decode keeps; for the record)")
+    del params
+    torch.cuda.empty_cache()
+    print(f"phase 10: {time.perf_counter() - t_phase:.1f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1500,6 +1892,13 @@ def main() -> int:
 
     # ---- 9. the DSE runner and Fig 5 --------------------------------
     schedule_kernel.update(runner_and_fig5(dev))
+
+    # ---- 10. the attention families ---------------------------------
+    from repro_torch.kernels.cycle_lanes import cycle_lanes
+    attention_serving(dev, {"amm_gather": amm_gather_u32,
+                            "banked_kv_decode": banked_kv_decode,
+                            "ssd_scan": ssd_chunk_step,
+                            "cycle_lanes": cycle_lanes})
 
     kernels = [{
         "name": "amm_gather", "route": "cuda",

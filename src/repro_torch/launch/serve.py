@@ -1,11 +1,13 @@
 """Serve a model: prefill a batch of prompts, then decode greedily.
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --preset full --batch 8 --prompt-len 4096 --gen 16
 
-Runs on the CUDA device unless ``--device cpu`` is given.  Prompts come
-from ``np.random.default_rng(0)``, as in the JAX package's serve.py, so
-both serve the same tokens; the weights are random, from seed 0.
+Serves the dense, moe and ssm families (``--mla-absorb`` decodes MLA
+in latent space).  Runs on the CUDA device unless ``--device cpu`` is
+given.  Prompts come from ``np.random.default_rng(0)``, as in the JAX
+package's serve.py, so both serve the same tokens; the weights are
+random, from seed 0.
 """
 from __future__ import annotations
 
@@ -29,11 +31,12 @@ def _sync(device: torch.device) -> None:
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-130m", choices=list(ARCH_NAMES))
+    ap.add_argument("--arch", default="qwen3-1.7b", choices=list(ARCH_NAMES))
     ap.add_argument("--preset", default="tiny", choices=["tiny", "full"])
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--mla-absorb", action="store_true")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA device)")
     args = ap.parse_args(argv)
@@ -67,7 +70,7 @@ def main(argv=None) -> dict:
           f"{time.perf_counter() - t0:.3f}s")
     last = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
 
-    decode = make_decode_step(arch, policy)
+    decode = make_decode_step(arch, policy, mla_absorb=args.mla_absorb)
     outs = []
     t0 = time.perf_counter()
     for _ in range(args.gen):

@@ -23,9 +23,13 @@ def make_prefill_step(arch: ArchConfig, policy: DTypePolicy,
     return prefill_step
 
 
-def make_decode_step(arch: ArchConfig, policy: DTypePolicy) -> Callable:
+def make_decode_step(arch: ArchConfig, policy: DTypePolicy, *,
+                     mla_absorb: bool = False) -> Callable:
+    """A greedy step: (next token [B, 1] int32, logits, cache).  The
+    attention families update ``cache``'s tensors in place."""
     def serve_step(params, cache, tokens):
-        logits, cache = decode_step(params, arch, cache, tokens, policy)
+        logits, cache = decode_step(params, arch, cache, tokens, policy,
+                                    mla_absorb=mla_absorb)
         next_tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
         return next_tok.to(torch.int32), logits, cache
 

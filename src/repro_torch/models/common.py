@@ -3,30 +3,42 @@
 Models are plain functions over a params dict that mirrors the JAX
 pytree key for key (``src/repro/models/common.py``).  Layer stacks are
 stacked on a leading [L, ...] axis, as in the JAX package, and consumed
-by a Python loop that indexes layer ``l``.  RoPE, ``layer_norm`` and the
-activation table wait for the attention slice (ROADMAP A9).
+by a Python loop that indexes layer ``l``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Callable
 
 import torch
+import torch.nn.functional as F
 
 Params = dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class DTypePolicy:
-    """Mixed-precision policy: parameter and compute dtypes."""
-    params: torch.dtype
-    compute: torch.dtype
+    """Mixed-precision policy: parameter, compute and optimizer-moment
+    dtypes.  The ``lean`` presets drop the f32 moments (and, ultra lean,
+    the f32 parameters) for the largest archs."""
+    params: torch.dtype = torch.float32
+    compute: torch.dtype = torch.bfloat16
+    moments: torch.dtype = torch.float32
 
     @staticmethod
     def standard() -> "DTypePolicy":
-        """f32 parameters, bf16 compute."""
-        return DTypePolicy(torch.float32, torch.bfloat16)
+        """f32 parameters, bf16 compute, f32 moments."""
+        return DTypePolicy(torch.float32, torch.bfloat16, torch.float32)
+
+    @staticmethod
+    def lean() -> "DTypePolicy":
+        return DTypePolicy(torch.float32, torch.bfloat16, torch.bfloat16)
+
+    @staticmethod
+    def ultra_lean() -> "DTypePolicy":
+        """bf16 params + bf16 moments: 6 bytes/param optimizer footprint."""
+        return DTypePolicy(torch.bfloat16, torch.bfloat16, torch.bfloat16)
 
 
 def truncated_normal_init(gen: torch.Generator, shape: tuple[int, ...],
@@ -60,8 +72,77 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
     return (y * (1.0 + scale.float())).to(x.dtype)
 
 
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """Layer norm in f32 (biased variance), cast back to x's dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
 def norm_init(d: int, device: torch.device) -> Params:
     return {"scale": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+# ----------------------------------------------------------------------
+# RoPE
+# ----------------------------------------------------------------------
+def rope_frequencies(head_dim: int, theta: float = 10000.0,
+                     device: "torch.device | None" = None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: broadcastable to [..., S].  Rotates
+    the two halves of D (not interleaved pairs), in f32, and casts back
+    to x's dtype."""
+    d = x.shape[-1]
+    freqs = rope_frequencies(d, theta, x.device)         # [D/2]
+    ang = positions[..., None].float() * freqs           # [..., S, D/2]
+    cos = torch.cos(ang)[..., None, :]                   # [..., S, 1, D/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------------
+# Activations
+# ----------------------------------------------------------------------
+def squared_relu(x: torch.Tensor) -> torch.Tensor:
+    """Nemotron-4's squared ReLU."""
+    r = F.relu(x)
+    return r * r
+
+
+def _gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS: "dict[str, Callable[[torch.Tensor], torch.Tensor]]" = {
+    "silu": F.silu,
+    "gelu": _gelu_tanh,
+    "relu2": squared_relu,
+    "relu": F.relu,
+}
+
+
+def stack_layer_init(layer_init: "Callable[[torch.Generator], Params]",
+                     gen: torch.Generator, n_layers: int) -> Params:
+    """Initialize L layers from ``gen`` in turn, stacked on axis 0 (the
+    layout of the JAX package's ``vmap``-ed init)."""
+    return _stack([layer_init(gen) for _ in range(n_layers)])
+
+
+def _stack(trees: "list[Params]") -> Params:
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees])
+            for k, v in trees[0].items()}
 
 
 def tree_map(fn, tree: Params) -> Params:

@@ -147,7 +147,10 @@ def test_ssd_vec_copies(p, n, offset, want):
 
 # ---------------------------------------------------------- ssd chunked
 @pytest.mark.parametrize("s,chunk,with_h0", [(40, 8, False), (40, 8, True),
-                                             (5, 8, False), (16, 16, True)])
+                                             (5, 8, False), (16, 16, True),
+                                             # lengths the chunk pads
+                                             (13, 8, True), (17, 16, False),
+                                             (9, 4, True)])
 def test_ssd_chunked_matches_jax_and_reference(s, chunk, with_h0):
     rng = np.random.default_rng(3 + s)
     b, h, p, n = 2, 2, 8, 16
@@ -313,7 +316,7 @@ def test_serve_tiny_on_cpu():
 
 
 def test_other_families_wait_for_their_roadmap_item():
-    arch = configs.tiny_variant(configs.get_arch("qwen3-1.7b"))
+    arch = configs.tiny_variant(configs.get_arch("zamba2-2.7b"))
     with pytest.raises(NotImplementedError, match="ROADMAP A9"):
         init_model(0, arch, device="cpu")
 
