@@ -137,7 +137,47 @@ fails:
    prefill-then-decode against ``forward`` at B 2 x S 256 within 2e-2
    in bf16 and 1e-3 in f32 at a capacity that drops nothing, and, for
    the record, the gap at the published capacity, where the forward
-   drops choices that the decode keeps.
+   drops choices that the decode keeps;
+11. the hybrid, vlm and audio families at full width, random weights
+   from seed 0, every kernel's launch count set to 0 before each path
+   and read after it (``ssd_chunk`` runs in zamba2's prefills and
+   forwards only, and must launch once a chunk of each Mamba2 layer
+   there; every other count must stay 0): (a) zamba2-2.7b (54 Mamba2
+   layers, d_model 2560, 80 SSD heads of 64, state 64, chunk 256; the
+   shared attention block every 6 layers, 32 heads of 80; vocab 32000,
+   tied; nothing cut) through ``serve.main`` with batch 8, prompt 4096
+   and 16 steps, which decodes from an empty cache as the JAX
+   package's serve.py does (no SSD chunk); then the prefill at B 8 x S 4096, which must
+   launch ``ssd_chunk`` 54 x 16 = 864 times, and 16 decode steps from
+   its cache, timed (host clock, fenced) beside their bounds, with their
+   busy shares and top device operations; the SSD kernel at zamba2's
+   chunk (Bt 8, H 80, Q 256, P 64, N 64) within atol 1e-4 + rtol 1e-5
+   of its plain version, with its time and split-TF32 bound; with the
+   layer weights rounded through bf16, 256 decode steps from an empty
+   cache against ``forward`` over the 256 tokens at every position, B 2,
+   within 1e-3 in f32, and in bf16 within 1.25 x the bf16 forward's own
+   distance from the f32 forward (at this depth bf16 rounding alone
+   exceeds the 2e-2 limit; the share of it is printed), since the
+   hybrid's prefill skips the shared block, as the reference's does, so
+   prefill-then-decode is not an identity; an f32 prefill plus three
+   decode steps on the card against the port on the CPU at B 1 x S 32
+   within 1e-3, then ``ssm_h``, ``ssm_conv``, ``shared_k`` and
+   ``shared_v``; (b) internvl2-1b (24 layers, d_model 896, 14 query and
+   2 KV heads of 64, vocab 151655, 256 patches of 1024; nothing cut)
+   served with its patches at batch 8, prompt 4096, 16 steps, its
+   prefill and decode timed as (a)'s; ``forward`` and ``loss_fn`` with
+   the 256 patches at B 1 on the card and on the CPU in f32 within
+   1e-3; prefill-then-decode against ``forward`` with no patches
+   ([B, 0, 1024]) at B 2 x S 512 within phase 10's limits; (c)
+   seamless-m4t-medium (12 encoder and 12 decoder layers, d_model 1024,
+   16 heads of 64, gelu MLP without a gate, vocab 256206, untied head;
+   nothing cut) served against a zero cross cache as the JAX
+   package's serve.py does, then a prefill with frames [8, 512, 1024] at prompt 4096 and
+   16 decode steps timed as (a)'s; prefill-then-decode against
+   ``forward`` at B 2 x S 512 with 64 frames (all of which the cross
+   cache holds) within phase 10's limits; an f32 prefill over 24 frames
+   (16 of them cached) plus three decode steps on the card against the
+   CPU within 1e-3, then the self and cross K/V caches.
 
 Every time is a median of device time between CUDA events (see
 ``time_ms``).  It then prints the ``kernels`` JSON line (kernel, plain,
@@ -150,6 +190,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import pathlib
 import statistics
 import subprocess
@@ -229,6 +270,18 @@ MOE_ARCH = "moonshot-v1-16b-a3b"
 MOE_LAYERS = 4                # of 48: 553.6 M expert params a layer
 MOE_BATCH, MOE_PROMPT, MOE_GEN = 4, 1024, 8
 MOE_CHECK_PROMPT = 256
+# phase 11: the hybrid, vlm and audio families, each at full width, at
+# phase 10's batch, prompt and check shapes
+HYBRID_ARCH = "zamba2-2.7b"
+HYBRID_CHECK_T = 256          # decode steps from an empty cache: a chunk
+VLM_ARCH = "internvl2-1b"
+ENCDEC_ARCH = "seamless-m4t-medium"
+ENCDEC_FRAMES = 512           # the served prefill's encoder frames
+ENCDEC_CHECK_FRAMES = 64      # max(513 // 8, 16): every frame is cached
+CPU_FRAMES = 24               # more than the 16 positions cached at S 35
+# zamba2's bf16 decode against the f32 forward, at most this multiple of
+# the bf16 forward's own distance from it (see phase 11a)
+BF16_DEPTH_MARGIN = 1.25
 
 
 def check(ok: bool, msg: str) -> None:
@@ -375,6 +428,55 @@ def wall_ms(fn, reps: int = 3):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times), out
+
+
+def ssd_inputs(gen: torch.Generator, bt: int, h: int, q: int, p: int,
+               n: int) -> tuple:
+    """One SSD chunk's inputs on ``gen``'s device: dt in [1e-3, 1e-1],
+    A = -linspace(1, 16, h) as the model's A_log gives it, cum =
+    cumsum(dt A); normal x, B, C and h_in."""
+    dev = gen.device
+    dt = 1e-3 + (1e-1 - 1e-3) * torch.rand((bt, h, q), generator=gen,
+                                            device=dev)
+    A = -torch.linspace(1.0, 16.0, h, device=dev)
+    cum = torch.cumsum(dt * A[None, :, None], dim=-1)
+    return (torch.randn((bt, h, q, p), generator=gen, device=dev), dt,
+            cum, torch.randn((bt, q, n), generator=gen, device=dev),
+            torch.randn((bt, q, n), generator=gen, device=dev),
+            torch.randn((bt, h, p, n), generator=gen, device=dev))
+
+
+def hold_ssd(ins: tuple, what: str, y_rtol: float = SSD_RTOL) -> tuple:
+    """The SSD chunk kernel against its plain version on ``ins``: y
+    within atol ``SSD_ATOL`` + rtol ``y_rtol``, h_out within ``SSD_ATOL``
+    + ``SSD_RTOL``.  Returns (y, the larger max error)."""
+    from repro_torch.kernels import ssd_chunk
+    from repro_torch.kernels.ssd_scan import ssd_chunk_step_plain
+    y, h_out = ssd_chunk(*ins)
+    want_y, want_h = ssd_chunk_step_plain(*ins)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(y).all() and torch.isfinite(h_out).all()),
+          f"{what}: output not finite")
+    ey = hold_close(y, want_y, SSD_ATOL, y_rtol, f"{what} y")
+    eh = hold_close(h_out, want_h, SSD_ATOL, SSD_RTOL, f"{what} h_out")
+    print(f"ssd {what}: y max err {ey[0]:.3g} (max |y| {ey[1]:.3g}, "
+          f"{ey[2]:.3g} of the limit), h_out max err {eh[0]:.3g} (max "
+          f"|h| {eh[1]:.3g}, {eh[2]:.3g} of the limit)")
+    return y, max(ey[0], eh[0])
+
+
+def ssd_work(bt: int, h: int, q: int, p: int, n: int
+             ) -> "tuple[float, float]":
+    """An SSD chunk's flops and bytes.  Flops are counted causally: the
+    kernel skips j > i, whose terms are exactly 0.  The kernel's route
+    runs every product as three TF32 tensor-core products (split
+    precision), so its bound is 3x the flops at the TF32 rate; on f32
+    CUDA cores it would be 1x at the f32 rate."""
+    tri = q * (q + 1) / 2
+    flops = bt * (2 * tri * n + h * (2 * tri * p + 4 * q * n * p))
+    n_bytes = 4 * (2 * bt * h * q * p + 2 * bt * h * p * n
+                   + 2 * bt * q * n + 2 * bt * h * q)
+    return flops, n_bytes
 
 
 def campaign_row(design: str, res) -> dict:
@@ -1090,6 +1192,97 @@ def print_top(what: str, events: "dict[str, tuple[int, float]]",
     return total
 
 
+def zero_counts(kernels: dict) -> None:
+    for w in kernels.values():
+        w.launches = 0
+
+
+def hold_counts(kernels: dict, what: str, want: "dict | None" = None
+                ) -> "dict[str, int]":
+    """Print each kernel's launch count since ``zero_counts`` and check
+    it against ``want`` (0 for every kernel ``want`` does not name)."""
+    want = want or {}
+    got = {k: w.launches for k, w in kernels.items()}
+    print(f"{what}: kernel launches {got} (want "
+          + (f"{want}, every other 0)" if want else "0 of every kernel)"))
+    check(all(n == want.get(k, 0) for k, n in got.items()),
+          f"{what} launched {got}, want {want or 'none'}")
+    return got
+
+
+def prompt(arch, b: int, s: int, dev: torch.device) -> torch.Tensor:
+    """serve.main's prompts: np.random.default_rng(0)."""
+    return torch.from_numpy(np.random.default_rng(0).integers(
+        0, arch.vocab, (b, s))).to(dev, torch.int32)
+
+
+def serve_full(kernels: dict, name: str, b: int, s: int, g: int,
+               extra=(), want: "dict | None" = None) -> None:
+    """``serve.main`` at full width, its launches counted from 0."""
+    from repro_torch.launch import serve
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = serve.main(["--arch", name, "--preset", "full", "--batch",
+                      str(b), "--prompt-len", str(s), "--gen", str(g),
+                      *extra])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hold_counts(kernels, f"serve {name}", want)
+    check(out["generated"].shape == (b, g),
+          f"{name}: generated shape {out['generated'].shape}")
+    print(f"serve {' '.join([name, *extra])} full B {b} S {s} gen {g}: "
+          f"{wall:.1f} s in all (init, prefill, decode), "
+          f"{out['tok_per_s']:.1f} tok/s in decode")
+
+
+def round_blocks(params: dict) -> None:
+    """The stacked layer weights rounded through bf16, as phase 6: the
+    forward casts every stacked leaf to the compute dtype where prefill
+    and decode cast at each product."""
+    from repro_torch.models.common import tree_map
+    params["blocks"] = tree_map(lambda t: t.to(torch.bfloat16).float(),
+                                params["blocks"])
+
+
+def decode_vs_forward(params, arch, toks, pol, extra=None):
+    """Token t+1 (the prefill's greedy pick) decoded from the prefill of
+    t tokens, and forward over the t+1, both given the batch's
+    ``extra`` inputs (patches, frames): (decode, forward's last
+    position, forward's aux)."""
+    from repro_torch.models import decode_step, forward, prefill
+    extra = extra or {}
+    lg, c = prefill(params, arch, {"tokens": toks, **extra},
+                    toks.shape[1] + 1, pol)
+    nxt = torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32)
+    dec, _ = decode_step(params, arch, c, nxt, pol)
+    del c
+    full, aux = forward(params, arch,
+                        {"tokens": torch.cat([toks, nxt], dim=1), **extra},
+                        pol)
+    torch.cuda.synchronize()
+    return dec[:, 0], full[:, -1], aux
+
+
+def hold_decode(params, arch, toks, pol, tol: float, what: str,
+                extra=None):
+    """``decode_vs_forward``'s logits held: bf16 by ``hold_logits``, f32
+    by ``hold_close``.  Returns forward's aux."""
+    dec, full, aux = decode_vs_forward(params, arch, toks, pol, extra)
+    msg = f"{what} prefill-then-decode vs forward"
+    if pol.compute == torch.bfloat16:
+        err, scale, share, atol, flat = hold_logits(dec, full, tol, msg)
+        note = f"; a flat atol {tol:g} would read {flat:.3g} of it"
+    else:
+        (err, scale, share), atol = hold_close(dec, full, tol, tol,
+                                               msg), tol
+        note = ""
+    print(f"{msg} at t+1 = {toks.shape[1] + 1}, B {toks.shape[0]}: max "
+          f"err {err:.3g} (max |logit| {scale:.3g}, {share:.3g} of the "
+          f"limit atol {atol:.3g} + rtol {tol:g} * |logit|{note})")
+    return aux
+
+
 def attention_serving(dev: torch.device, kernels: dict) -> None:
     """Phase 10: the attention families served at full width with random
     weights from seed 0: (a) qwen3-1.7b (dense GQA) through
@@ -1101,10 +1294,9 @@ def attention_serving(dev: torch.device, kernels: dict) -> None:
     ``kernels`` maps each kernel of the port to its wrapper: this path
     runs none of them, and each count must stay 0."""
     from repro_torch.configs import get_arch
-    from repro_torch.launch import serve
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models import (DTypePolicy, count_params, decode_step,
-                                    forward, init_model, prefill)
+                                    init_model, prefill)
     from repro_torch.models.attention import AttnConfig
     from repro_torch.models.common import tree_map
 
@@ -1114,85 +1306,16 @@ def attention_serving(dev: torch.device, kernels: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
     t_phase = time.perf_counter()
 
-    def no_launch(what: str) -> None:
-        got = {k: w.launches for k, w in kernels.items()}
-        print(f"{what}: kernel launches {got} (the attention path runs "
-              "none of the port's kernels)")
-        check(all(n == 0 for n in got.values()),
-              f"{what} launched a kernel: {got}")
-
-    def zero_counts() -> None:
-        for w in kernels.values():
-            w.launches = 0
-
-    def prompt(arch, b: int, s: int) -> torch.Tensor:
-        """serve.main's prompts: np.random.default_rng(0)."""
-        return torch.from_numpy(np.random.default_rng(0).integers(
-            0, arch.vocab, (b, s))).to(dev, torch.int32)
-
-    def served(name: str, b: int, s: int, g: int, extra=()) -> None:
-        zero_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = serve.main(["--arch", name, "--preset", "full", "--batch",
-                          str(b), "--prompt-len", str(s), "--gen", str(g),
-                          *extra])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        no_launch(f"serve {name}")
-        check(out["generated"].shape == (b, g),
-              f"{name}: generated shape {out['generated'].shape}")
-        print(f"serve {' '.join([name, *extra])} full B {b} S {s} gen {g}: "
-              f"{wall:.1f} s in all (init, prefill, decode), "
-              f"{out['tok_per_s']:.1f} tok/s in decode")
-
-    def round_blocks(params: dict) -> None:
-        """The stacked layer weights rounded through bf16, as phase 6:
-        the forward casts every stacked leaf to the compute dtype where
-        prefill and decode cast at each product."""
-        params["blocks"] = tree_map(lambda t: t.to(torch.bfloat16).float(),
-                                    params["blocks"])
-
-    def decode_vs_forward(params, arch, toks, pol):
-        """Token t+1 (the prefill's greedy pick) decoded from the prefill
-        of t tokens, and forward over the t+1: (decode, forward's last
-        position, forward's aux)."""
-        lg, c = prefill(params, arch, {"tokens": toks}, toks.shape[1] + 1,
-                        pol)
-        nxt = torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32)
-        dec, _ = decode_step(params, arch, c, nxt, pol)
-        del c
-        full, aux = forward(params, arch,
-                            {"tokens": torch.cat([toks, nxt], dim=1)}, pol)
-        torch.cuda.synchronize()
-        return dec[:, 0], full[:, -1], aux
-
-    def hold_decode(params, arch, toks, pol, tol: float, what: str):
-        """bf16 logits held by ``hold_logits``, f32 by ``hold_close``."""
-        dec, full, aux = decode_vs_forward(params, arch, toks, pol)
-        msg = f"{what} prefill-then-decode vs forward"
-        if pol.compute == torch.bfloat16:
-            err, scale, share, atol, flat = hold_logits(dec, full, tol, msg)
-            note = f"; a flat atol {tol:g} would read {flat:.3g} of it"
-        else:
-            (err, scale, share), atol = hold_close(dec, full, tol, tol,
-                                                   msg), tol
-            note = ""
-        print(f"{msg} at t+1 = {toks.shape[1] + 1}, B {toks.shape[0]}: max "
-              f"err {err:.3g} (max |logit| {scale:.3g}, {share:.3g} of the "
-              f"limit atol {atol:.3g} + rtol {tol:g} * |logit|{note})")
-        return aux
-
     # ---- (a) qwen3-1.7b at full width -------------------------------
     arch = get_arch(ARCH)
     b, s, g = ATTN_BATCH, ATTN_PROMPT, ATTN_GEN
-    served(ARCH, b, s, g)
+    serve_full(kernels, ARCH, b, s, g)
     params = init_model(0, arch, policy, dev)          # serve's weights
     n_params = count_params(params)
-    tokens = prompt(arch, b, s)
+    tokens = prompt(arch, b, s, dev)
     prefill_step = make_prefill_step(arch, policy, s + g)
     decode = make_decode_step(arch, policy)
-    zero_counts()
+    zero_counts(kernels)
     prefill_ms, (logits, cache) = wall_ms(
         lambda: prefill_step(params, {"tokens": tokens}))
     check(bool(torch.isfinite(logits).all()), "qwen3 prefill not finite")
@@ -1203,7 +1326,7 @@ def attention_serving(dev: torch.device, kernels: dict) -> None:
         last, logits, cache = decode(params, cache, last)
     torch.cuda.synchronize()
     decode_ms = (time.perf_counter() - t0) * 1e3 / g
-    no_launch(f"{ARCH} prefill and decode")
+    hold_counts(kernels, f"{ARCH} prefill and decode")
     check(bool(torch.isfinite(logits).all()), "qwen3 decode not finite")
     check(int(cache["len"]) == s + g, "qwen3 cache length")
 
@@ -1289,10 +1412,10 @@ def attention_serving(dev: torch.device, kernels: dict) -> None:
     # ---- (b) minicpm3-4b (MLA) at full width ------------------------
     arch = get_arch(MLA_ARCH)
     b, s, g = MLA_BATCH, MLA_PROMPT, MLA_GEN
-    served(MLA_ARCH, b, s, g, ("--mla-absorb",))
+    serve_full(kernels, MLA_ARCH, b, s, g, ("--mla-absorb",))
     params = init_model(0, arch, policy, dev)
-    tokens = prompt(arch, b, s)
-    zero_counts()
+    tokens = prompt(arch, b, s, dev)
+    zero_counts(kernels)
     pre_ms, (logits, cache) = wall_ms(lambda: make_prefill_step(
         arch, policy, s + g)(params, {"tokens": tokens}))
     first = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
@@ -1311,7 +1434,7 @@ def attention_serving(dev: torch.device, kernels: dict) -> None:
         torch.cuda.synchronize()
         runs[absorb] = ((time.perf_counter() - t0) * 1e3 / g, lgs)
         del c
-    no_launch(f"{MLA_ARCH} prefill and decode")
+    hold_counts(kernels, f"{MLA_ARCH} prefill and decode")
     mla_errs = [hold_logits(a, e, E2E_TOL,
                             f"{MLA_ARCH} absorbed vs expanded step {i}")
                 for i, (a, e) in enumerate(zip(runs[True][1], runs[False][1]))]
@@ -1354,8 +1477,8 @@ def attention_serving(dev: torch.device, kernels: dict) -> None:
           "the card holds")
     b, s, g = MOE_BATCH, MOE_PROMPT, MOE_GEN
     params = init_model(0, arch, policy, dev)
-    tokens = prompt(arch, b, s)
-    zero_counts()
+    tokens = prompt(arch, b, s, dev)
+    zero_counts(kernels)
     pre_ms, (logits, cache) = wall_ms(lambda: make_prefill_step(
         arch, policy, s + g)(params, {"tokens": tokens}))
     last = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
@@ -1366,7 +1489,7 @@ def attention_serving(dev: torch.device, kernels: dict) -> None:
         last, logits, cache = step(params, cache, last)
     torch.cuda.synchronize()
     moe_dec_ms = (time.perf_counter() - t0) * 1e3 / g
-    no_launch(f"{MOE_ARCH} prefill and decode")
+    hold_counts(kernels, f"{MOE_ARCH} prefill and decode")
     check(bool(torch.isfinite(logits).all()), "moonshot decode not finite")
     print(f"{MOE_ARCH} ({MOE_LAYERS} layers) B {b} S {s}, "
           f"{count_params(params) / 1e9:.3f} B params: prefill {pre_ms:.3f} "
@@ -1400,6 +1523,375 @@ def attention_serving(dev: torch.device, kernels: dict) -> None:
     torch.cuda.empty_cache()
     print(f"phase 10: {time.perf_counter() - t_phase:.1f} s, peak device "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+
+
+def family_serving(dev: torch.device, gen: torch.Generator,
+                   kernels: dict) -> dict:
+    """Phase 11: the hybrid, vlm and audio families served at full width
+    with random weights from seed 0: (a) zamba2-2.7b through
+    ``serve.main`` (decoding from an empty cache, as the JAX package's
+    serve.py does: no prefill, no SSD chunk), then its prefill, which runs
+    ``ssd_chunk`` once a chunk of each of its 54 Mamba2 layers, and 16
+    decode steps, timed beside their bounds and profiled; the SSD
+    kernel against its plain version at zamba2's chunk; forward against
+    t decode steps from an empty cache; the card against the CPU in
+    f32; (b) internvl2-1b served with its 256 patches, its prefill and
+    decode timed; forward and ``loss_fn`` with the patches on the card
+    and the CPU; prefill-then-decode against forward with no patches;
+    (c) seamless-m4t-medium served against a zero cross cache, then a
+    prefill over 512 frames and 16 decode steps timed; prefill-then-
+    decode against forward with frames that fit the cross cache; the
+    card against the CPU in f32, the cross caches included.  Every
+    kernel's launch count is set to 0 before each path and read after
+    it: only (a)'s prefills and forwards run one (``ssd_chunk``).
+    Returns the SSD kernel's numbers on this path."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ssd_chunk
+    from repro_torch.kernels.ssd_scan import ssd_chunk_step_plain
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+    from repro_torch.models import (DTypePolicy, count_params, decode_step,
+                                    forward, init_model, loss_fn, make_cache,
+                                    prefill, ssm_config)
+    from repro_torch.models.attention import AttnConfig
+    from repro_torch.models.common import tree_map
+
+    policy = DTypePolicy.standard()
+    f32 = DTypePolicy(torch.float32, torch.float32)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_phase = time.perf_counter()
+    b, s, g = ATTN_BATCH, ATTN_PROMPT, ATTN_GEN
+
+    def timed(arch, params, batch: dict, want: "dict | None" = None
+              ) -> "tuple[float, float, dict]":
+        """The prefill at B b x S s, its launches counted, then timed
+        (host clock, fenced, median of 3); g greedy decode steps from
+        its cache; the profiles of a decode step and of the prefill.
+        Returns (prefill ms, decode ms a step, the cache's shapes)."""
+        name = arch.name
+        prefill_step = make_prefill_step(arch, policy, s + g)
+        decode = make_decode_step(arch, policy)
+        zero_counts(kernels)
+        logits, cache = prefill_step(params, batch)
+        torch.cuda.synchronize()
+        hold_counts(kernels, f"{name} prefill B {b} S {s}", want)
+        check(bool(torch.isfinite(logits).all()), f"{name} prefill finite")
+        del logits, cache
+        pre_ms, (logits, cache) = wall_ms(lambda: prefill_step(params,
+                                                               batch))
+        shapes = {k: tuple(v.shape) for k, v in cache.items()}
+        last = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+        zero_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(g):
+            last, logits, cache = decode(params, cache, last)
+        torch.cuda.synchronize()
+        dec_ms = (time.perf_counter() - t0) * 1e3 / g
+        hold_counts(kernels, f"{name} {g} decode steps")
+        check(bool(torch.isfinite(logits).all()), f"{name} decode finite")
+        check(int(cache["len"]) == s + g, f"{name} cache length")
+        print(f"serve {name} B {b} S {s}: prefill {pre_ms:.3f} ms (host "
+              f"clock, fenced, median of 3), decode {dec_ms:.3f} ms a token "
+              f"step (host clock, fenced, {g} steps)")
+        print_top(f"{name} decode step", device_events(
+            lambda: decode(params, cache, last))[0], dec_ms)
+        del logits, cache
+        torch.cuda.empty_cache()
+        print_top(f"{name} prefill", device_events(
+            lambda: prefill_step(params, batch))[0], pre_ms)
+        torch.cuda.empty_cache()
+        return pre_ms, dec_ms, shapes
+
+    def print_bounds(name: str, pre_ms: float, dec_ms: float,
+                     pre_terms: "dict[str, float]", pre_bytes: float,
+                     dec_bytes: float) -> None:
+        """The prefill's bound: its operations, each term in ms at its
+        own peak, against its bytes; the decode step's: its bytes."""
+        pre_ops = sum(pre_terms.values())
+        pre_bound, pre_by = max((pre_ops, "operations"),
+                                (pre_bytes / HBM_BYTES_PER_S * 1e3, "bytes"))
+        dec_bound = dec_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"{name} prefill bound {pre_bound:.3f} ms ({pre_by}: "
+              + ", ".join(f"{k} {v:.3f} ms" for k, v in pre_terms.items())
+              + f"; bytes {pre_bytes / 1e9:.3f} GB); the prefill takes "
+              f"{pre_ms / pre_bound:.2f}x it")
+        print(f"{name} decode bound {dec_bound:.4f} ms (bytes: "
+              f"{dec_bytes / 1e9:.3f} GB of f32 params and the cache at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s); the step takes "
+              f"{dec_ms / dec_bound:.2f}x it")
+
+    def nbytes(shapes: dict, cd_keys, f32_keys=()) -> float:
+        return sum(math.prod(shapes[k]) * (4 if k in f32_keys else 2)
+                   for k in (*cd_keys, *f32_keys))
+
+    def mats(tree: dict) -> int:
+        """The stacked matrices' elements (leaves [L, in, out])."""
+        return sum(t.numel() for t in _leaves(tree) if t.ndim == 3)
+
+    def card_vs_cpu(params, arch, batch: dict, keys, what: str) -> None:
+        """An f32 prefill of capacity S + 3 and three greedy decode steps
+        on the card against the port on the CPU (the card's tokens fed
+        to both): the logits of each, then the cache tensors ``keys``."""
+        cap = batch["tokens"].shape[1] + 3
+        cpu_params = tree_map(lambda t: t.cpu(), params)
+        lg, c = prefill(params, arch, batch, cap, f32)
+        lg_cpu, c_cpu = prefill(cpu_params, arch,
+                                {k: v.cpu() for k, v in batch.items()},
+                                cap, f32)
+        errs = [hold_close(lg.cpu(), lg_cpu, F32_MODEL_TOL, F32_MODEL_TOL,
+                           f"{what} f32 prefill card vs cpu")]
+        for _ in range(3):
+            nxt = torch.argmax(lg[:, -1:, :], dim=-1).to(torch.int32)
+            at = int(c["len"])
+            lg, c = decode_step(params, arch, c, nxt, f32)
+            lg_cpu, c_cpu = decode_step(cpu_params, arch, c_cpu, nxt.cpu(),
+                                        f32)
+            errs.append(hold_close(
+                lg.cpu(), lg_cpu, F32_MODEL_TOL, F32_MODEL_TOL,
+                f"{what} f32 decode at cache_len {at} card vs cpu"))
+        for k in keys:
+            check(c[k].shape == c_cpu[k].shape, f"{what} cache {k} shape")
+            errs.append(hold_close(c[k].cpu(), c_cpu[k], F32_MODEL_TOL,
+                                   F32_MODEL_TOL, f"{what} f32 cache {k}"))
+        print(f"{what} f32 card vs cpu, B {batch['tokens'].shape[0]} S "
+              f"{batch['tokens'].shape[1]}, capacity {cap}: prefill, 3 "
+              f"decode steps, then {', '.join(keys)}: max errs "
+              + ", ".join(f"{e[0]:.3g}" for e in errs)
+              + f" (largest share of the limit {max(e[2] for e in errs):.3g})")
+
+    # ---- (a) zamba2-2.7b at full width ------------------------------
+    arch = get_arch(HYBRID_ARCH)
+    scfg = ssm_config(arch)
+    every = arch.shared_attn_every
+    want_ssd = arch.n_layers * (s // scfg.chunk)
+    serve_full(kernels, HYBRID_ARCH, b, s, g)
+    print(f"serve {HYBRID_ARCH}: decodes from an empty cache, as the JAX "
+          "package's serve.py does (no prefill), so it launches no SSD "
+          "chunk")
+    params = init_model(0, arch, policy, dev)           # serve's weights
+    n_params = count_params(params)
+    tokens = prompt(arch, b, s, dev)
+    pre_ms, dec_ms, shapes = timed(arch, params, {"tokens": tokens},
+                                   {"ssd_scan": want_ssd})
+    chunk_flops, chunk_bytes = ssd_work(b, scfg.n_heads, scfg.chunk,
+                                        scfg.head_dim, scfg.d_state)
+    d, V = arch.d_model, arch.padded_vocab
+    print_bounds(
+        HYBRID_ARCH, pre_ms, dec_ms,
+        {"bf16 products": (2 * b * s * mats(params["blocks"])
+                           + 2 * b * d * V) / BF16_FLOPS_PER_S * 1e3,
+         "SSD chunks as split-TF32": 3 * want_ssd * chunk_flops
+         / TF32_FLOPS_PER_S * 1e3},
+        n_params * 4 + nbytes(shapes, ("ssm_conv",), ("ssm_h",)),
+        n_params * 4 + nbytes(shapes, ("ssm_conv", "shared_k", "shared_v"),
+                              ("ssm_h",)) + 4 * math.prod(shapes["ssm_h"]))
+    print(f"{HYBRID_ARCH}: {n_params / 1e9:.3f} B params "
+          f"({n_params * 4 / 1e9:.2f} GB f32), {arch.n_layers} Mamba2 "
+          f"layers (H {scfg.n_heads}, P {scfg.head_dim}, N {scfg.d_state}, "
+          f"chunk {scfg.chunk}), the shared block every {every} layers: "
+          f"{-(-arch.n_layers // every)} uses, {arch.n_heads} heads of "
+          f"{arch.resolved_head_dim}")
+
+    # the SSD kernel at zamba2's chunk, against its plain version
+    ins = ssd_inputs(gen, b, scfg.n_heads, scfg.chunk, scfg.head_dim,
+                     scfg.d_state)
+    shape = (f"Bt {b} H {scfg.n_heads} Q {scfg.chunk} P {scfg.head_dim} "
+             f"N {scfg.d_state}")
+    _, z_err = hold_ssd(ins, f"zamba2 {shape} f32")
+    z_ms = time_ms(lambda: ssd_chunk(*ins))
+    z_plain = time_ms(lambda: ssd_chunk_step_plain(*ins))
+    z_bound, z_by = bound_ms(chunk_bytes, 3 * chunk_flops, TF32_FLOPS_PER_S)
+    print(f"ssd zamba2 {shape}: {chunk_flops / 1e9:.3f} GFLOP, "
+          f"{chunk_bytes / 1e6:.2f} MB; kernel {z_ms:.4f} ms, plain "
+          f"{z_plain:.4f} ms; split-TF32 bound {z_bound:.4f} ms ({z_by}), "
+          f"{z_bound / z_ms:.1%} of it; {want_ssd} launches a prefill = "
+          f"{want_ssd * z_ms:.3f} ms of the {pre_ms:.3f} ms prefill")
+    del ins
+
+    # forward against t decode steps from an empty cache, at every
+    # position: the identity the hybrid keeps (its prefill skips the
+    # shared block), the layer weights rounded through bf16 first.  In
+    # f32 it holds within 1e-3.  In bf16, at 54 Mamba2 layers and 9
+    # shared blocks, the rounding of either path alone exceeds the 2e-2
+    # limit: the bf16 forward reads about 1.09 of it against the f32
+    # forward on the same weights.  So the bf16 decode is held to the f32
+    # forward as closely as the bf16 forward is (``BF16_DEPTH_MARGIN``),
+    # and its share of the 2e-2 limit against the bf16 forward printed
+    round_blocks(params)
+    t = HYBRID_CHECK_T
+    toks = tokens[:CHECK_BATCH, :t]
+
+    def decoded(pol: DTypePolicy) -> torch.Tensor:
+        """The logits of t decode steps from an empty cache, [B, t, V]."""
+        cache = make_cache(arch, t, CHECK_BATCH, pol, dev)
+        lgs = []
+        for i in range(t):
+            lg, cache = decode_step(params, arch, cache, toks[:, i:i + 1],
+                                    pol)
+            lgs.append(lg[:, 0])
+        return torch.stack(lgs, dim=1)
+
+    zero_counts(kernels)
+    full32 = forward(params, arch, {"tokens": toks}, f32)[0]
+    dec32 = decoded(f32)
+    full16 = forward(params, arch, {"tokens": toks}, policy)[0].float()
+    dec16 = decoded(policy).float()
+    torch.cuda.synchronize()
+    hold_counts(kernels, f"{HYBRID_ARCH} forward over {t} tokens in f32 and "
+                f"bf16, 2 x {t} decode steps",
+                {"ssd_scan": 2 * arch.n_layers * -(-t // scfg.chunk)})
+    what = f"{HYBRID_ARCH} {t} decode steps from an empty cache vs forward"
+    err, scale, share = hold_close(dec32, full32, F32_MODEL_TOL,
+                                   F32_MODEL_TOL, f"{what} f32")
+    print(f"{what} f32 at every position, B {CHECK_BATCH}: max err {err:.3g} "
+          f"(max |logit| {scale:.3g}, {share:.3g} of the limit atol "
+          f"{F32_MODEL_TOL:g} + rtol {F32_MODEL_TOL:g} * |logit|)")
+    floor = (full16 - full32).abs().max().item()
+    got = (dec16 - full32).abs().max().item()
+    check(got <= BF16_DEPTH_MARGIN * floor,
+          f"{what} bf16: {got:.3g} from the f32 forward, beyond "
+          f"{BF16_DEPTH_MARGIN:g} x the bf16 forward's {floor:.3g}")
+    atol = E2E_TOL * max(1.0, full16.abs().max().item())
+    e2e = ((dec16 - full16).abs() / (atol + E2E_TOL * full16.abs())).max()
+    print(f"{what} bf16 at every position, B {CHECK_BATCH}: max err "
+          f"{got:.3g} against the f32 forward, {got / floor:.3g} x the bf16 "
+          f"forward's own {floor:.3g} (limit {BF16_DEPTH_MARGIN:g} x); "
+          f"against the bf16 forward {(dec16 - full16).abs().max():.3g}, "
+          f"{e2e:.3g} of atol {atol:.3g} + rtol {E2E_TOL:g} * |logit| (for "
+          f"the record; the bf16 forward against the f32 forward reads "
+          f"{((full16 - full32).abs() / (atol + E2E_TOL * full32.abs())).max():.3g}"
+          " of it)")
+    del full32, dec32, full16, dec16
+    zero_counts(kernels)
+    card_vs_cpu(params, arch, {"tokens": tokens[:CPU_BATCH, :CPU_PROMPT]},
+                ("ssm_h", "ssm_conv", "shared_k", "shared_v"), HYBRID_ARCH)
+    hold_counts(kernels, f"{HYBRID_ARCH} f32 prefill and decode on the card",
+                {"ssd_scan": arch.n_layers * -(-CPU_PROMPT // scfg.chunk)})
+    del params, tokens
+    torch.cuda.empty_cache()
+
+    # ---- (b) internvl2-1b at full width -----------------------------
+    arch = get_arch(VLM_ARCH)
+    serve_full(kernels, VLM_ARCH, b, s, g)
+    params = init_model(0, arch, policy, dev)
+    n_params = count_params(params)
+    rng = np.random.default_rng(0)            # serve's tokens, then patches
+    tokens = torch.from_numpy(rng.integers(0, arch.vocab, (b, s))).to(
+        dev, torch.int32)
+    patches = torch.from_numpy(rng.standard_normal(
+        (b, arch.n_patches, arch.vit_dim))).to(dev, torch.float32)
+    pre_ms, dec_ms, shapes = timed(arch, params,
+                                   {"tokens": tokens, "patches": patches})
+    blk = AttnConfig.block_kv
+    L, hq, hd = arch.n_layers, arch.n_heads, arch.resolved_head_dim
+    d, V = arch.d_model, arch.padded_vocab
+    print_bounds(
+        VLM_ARCH, pre_ms, dec_ms,
+        {"bf16 products": (2 * b * s * mats(params["blocks"])
+                           + 2 * b * d * V) / BF16_FLOPS_PER_S * 1e3,
+         "f32 block-scan attention": L * 4 * b * hq * s * (-(-s // blk) * blk)
+         * hd / F32_FLOPS_PER_S * 1e3},
+        n_params * 4 + nbytes(shapes, ("k", "v")) * s / (s + g),
+        n_params * 4 + nbytes(shapes, ("k", "v")))
+    print(f"{VLM_ARCH}: {n_params / 1e9:.3f} B params; the prefill embeds "
+          "the tokens only, as the reference's (its patches are drawn and "
+          "passed, and ignored)")
+    # forward and loss_fn with the 256 patches, card against CPU, f32
+    tok = tokens[:CPU_BATCH, :CPU_PROMPT + 1]
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:],
+             "patches": patches[:CPU_BATCH]}
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    cpu_batch = {k: v.cpu() for k, v in batch.items()}
+    zero_counts(kernels)
+    full, _ = forward(params, arch, batch, f32)
+    loss, met = loss_fn(params, arch, batch, f32)
+    hold_counts(kernels, f"{VLM_ARCH} forward and loss_fn")
+    full_cpu, _ = forward(cpu_params, arch, cpu_batch, f32)
+    loss_cpu, met_cpu = loss_fn(cpu_params, arch, cpu_batch, f32)
+    check(full.shape == (CPU_BATCH, arch.n_patches + CPU_PROMPT, V),
+          f"{VLM_ARCH} forward shape {tuple(full.shape)}")
+    e_full = hold_close(full.cpu(), full_cpu, F32_MODEL_TOL, F32_MODEL_TOL,
+                        f"{VLM_ARCH} f32 forward card vs cpu")
+    e_loss = [hold_close(met[k].cpu(), met_cpu[k], F32_MODEL_TOL,
+                         F32_MODEL_TOL, f"{VLM_ARCH} f32 {k} card vs cpu")
+              for k in ("ce", "z_loss")]
+    e_loss.append(hold_close(loss.cpu(), loss_cpu, F32_MODEL_TOL,
+                             F32_MODEL_TOL, f"{VLM_ARCH} f32 loss"))
+    check(met["tokens"].item() == CPU_PROMPT, f"{VLM_ARCH} loss tokens")
+    print(f"{VLM_ARCH} f32 forward over {arch.n_patches} patches + "
+          f"{CPU_PROMPT} tokens, card vs cpu: logits max err "
+          f"{e_full[0]:.3g} ({e_full[2]:.3g} of the limit); loss_fn "
+          f"{loss.item():.6f} vs {loss_cpu.item():.6f}, ce / z_loss / loss "
+          "max errs " + ", ".join(f"{e[0]:.3g}" for e in e_loss))
+    del full, full_cpu, cpu_params
+    round_blocks(params)
+    none = {"patches": torch.zeros((CHECK_BATCH, 0, arch.vit_dim),
+                                   device=dev)}
+    toks = tokens[:CHECK_BATCH, :CHECK_PROMPT]
+    zero_counts(kernels)
+    hold_decode(params, arch, toks, policy, E2E_TOL,
+                f"{VLM_ARCH} bf16, no patches", none)
+    hold_decode(params, arch, toks, f32, F32_MODEL_TOL,
+                f"{VLM_ARCH} f32, no patches", none)
+    hold_counts(kernels, f"{VLM_ARCH} prefill-then-decode checks")
+    del params, tokens, patches
+    torch.cuda.empty_cache()
+
+    # ---- (c) seamless-m4t-medium at full width ----------------------
+    arch = get_arch(ENCDEC_ARCH)
+    serve_full(kernels, ENCDEC_ARCH, b, s, g)
+    params = init_model(0, arch, policy, dev)
+    n_params = count_params(params)
+    tokens = prompt(arch, b, s, dev)
+    frames = torch.randn((b, ENCDEC_FRAMES, arch.d_model), generator=gen,
+                         device=dev)
+    pre_ms, dec_ms, shapes = timed(arch, params,
+                                   {"tokens": tokens, "frames": frames})
+    s_enc = max((s + g) // arch.cross_len_frac, 16)
+    check(shapes["cross_k"][3] == min(ENCDEC_FRAMES, s_enc),
+          f"{ENCDEC_ARCH} cross cache {shapes['cross_k']}")
+    L, hq, hd = arch.n_layers, arch.n_heads, arch.resolved_head_dim
+    d, V, F = arch.d_model, arch.padded_vocab, ENCDEC_FRAMES
+    cross_kv = (params["blocks"]["cross"]["wk"].numel()
+                + params["blocks"]["cross"]["wv"].numel())
+    enc_attn = arch.enc_layers * 4 * b * hq * F * (-(-F // blk) * blk) * hd
+    dec_attn = L * 4 * b * hq * s * ((-(-s // blk) + -(-F // blk)) * blk) * hd
+    print_bounds(
+        ENCDEC_ARCH, pre_ms, dec_ms,
+        {"bf16 products": (2 * b * s * (mats(params["blocks"]) - cross_kv)
+                           + 2 * b * F * (cross_kv
+                                          + mats(params["enc_blocks"]))
+                           + 2 * b * d * V) / BF16_FLOPS_PER_S * 1e3,
+         "f32 block-scan attention": (enc_attn + dec_attn)
+         / F32_FLOPS_PER_S * 1e3},
+        n_params * 4 + b * F * d * 4 + nbytes(shapes, ("cross_k", "cross_v"))
+        + nbytes(shapes, ("k", "v")) * s / (s + g),
+        n_params * 4 + nbytes(shapes, ("k", "v", "cross_k", "cross_v")))
+    print(f"{ENCDEC_ARCH}: {n_params / 1e9:.3f} B params; prefill over "
+          f"{F} frames, cross cache {shapes['cross_k']} (at most "
+          f"max({s + g} // {arch.cross_len_frac}, 16) = {s_enc} positions)")
+    toks = tokens[:CHECK_BATCH, :CHECK_PROMPT]
+    fit = {"frames": frames[:CHECK_BATCH, :ENCDEC_CHECK_FRAMES]}
+    check(max((CHECK_PROMPT + 1) // arch.cross_len_frac, 16)
+          == ENCDEC_CHECK_FRAMES, "the check's frames fit the cross cache")
+    # the encdec stacks run uncast in forward as in prefill and decode, so
+    # the weights need no rounding here
+    zero_counts(kernels)
+    hold_decode(params, arch, toks, policy, E2E_TOL,
+                f"{ENCDEC_ARCH} bf16, {ENCDEC_CHECK_FRAMES} frames", fit)
+    hold_decode(params, arch, toks, f32, F32_MODEL_TOL,
+                f"{ENCDEC_ARCH} f32, {ENCDEC_CHECK_FRAMES} frames", fit)
+    card_vs_cpu(params, arch, {"tokens": tokens[:CPU_BATCH, :CPU_PROMPT],
+                               "frames": frames[:CPU_BATCH, :CPU_FRAMES]},
+                ("k", "v", "cross_k", "cross_v"), ENCDEC_ARCH)
+    hold_counts(kernels, f"{ENCDEC_ARCH} checks")
+    del params, tokens, frames
+    torch.cuda.empty_cache()
+    print(f"phase 11: {time.perf_counter() - t_phase:.1f} s, peak device "
+          f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return {"launches": want_ssd, "ms": z_ms, "plain_ms": z_plain,
+            "bound_ms": z_bound, "bound_by": z_by, "max_abs_err": z_err}
 
 
 def main() -> int:
@@ -1698,49 +2190,18 @@ def main() -> int:
     sb, sh, sq, sp, sn = (SERVE_BATCH, scfg.n_heads, scfg.chunk,
                           scfg.head_dim, scfg.d_state)
 
-    def ssd_inputs(bt: int, h: int, q: int, p: int, n: int) -> tuple:
-        """dt in [1e-3, 1e-1], A = -linspace(1, 16, h) as the model's
-        A_log gives it, cum = cumsum(dt A); normal x, B, C and h_in."""
-        dt = 1e-3 + (1e-1 - 1e-3) * torch.rand((bt, h, q), generator=gen,
-                                                device=dev)
-        A = -torch.linspace(1.0, 16.0, h, device=dev)
-        cum = torch.cumsum(dt * A[None, :, None], dim=-1)
-        return (torch.randn((bt, h, q, p), generator=gen, device=dev), dt,
-                cum, torch.randn((bt, q, n), generator=gen, device=dev),
-                torch.randn((bt, q, n), generator=gen, device=dev),
-                torch.randn((bt, h, p, n), generator=gen, device=dev))
-
-    def hold_ssd(ins: tuple, what: str, y_rtol: float = SSD_RTOL) -> tuple:
-        y, h_out = ssd_chunk(*ins)
-        want_y, want_h = ssd_chunk_step_plain(*ins)
-        torch.cuda.synchronize()
-        check(bool(torch.isfinite(y).all() and torch.isfinite(h_out).all()),
-              f"{what}: output not finite")
-        ey = hold_close(y, want_y, SSD_ATOL, y_rtol, f"{what} y")
-        eh = hold_close(h_out, want_h, SSD_ATOL, SSD_RTOL, f"{what} h_out")
-        print(f"ssd {what}: y max err {ey[0]:.3g} (max |y| {ey[1]:.3g}, "
-              f"{ey[2]:.3g} of the limit), h_out max err {eh[0]:.3g} (max "
-              f"|h| {eh[1]:.3g}, {eh[2]:.3g} of the limit)")
-        return y, max(ey[0], eh[0])
-
-    ssd_in = ssd_inputs(sb, sh, sq, sp, sn)
+    ssd_in = ssd_inputs(gen, sb, sh, sq, sp, sn)
     _, ssd_err = hold_ssd(ssd_in, f"Bt {sb} H {sh} Q {sq} P {sp} N {sn} f32")
-    hold_ssd(ssd_inputs(2, 3, 12, 8, 6), "odd Bt 2 H 3 Q 12 P 8 N 6 f32")
-    odd = ssd_inputs(2, 3, 12, 8, 6)
+    hold_ssd(ssd_inputs(gen, 2, 3, 12, 8, 6),
+             "odd Bt 2 H 3 Q 12 P 8 N 6 f32")
+    odd = ssd_inputs(gen, 2, 3, 12, 8, 6)
     yb, _ = hold_ssd((odd[0].to(torch.bfloat16),) + odd[1:],
                      "odd, bf16 x (y within one bf16 step)", BF16_RTOL)
     check(torch.equal(yb, yb.to(torch.bfloat16).float()),
           "y of bf16 x is not rounded through bf16")
     ssd_ms = time_ms(lambda: ssd_chunk(*ssd_in))
     ssd_plain = time_ms(lambda: ssd_chunk_step_plain(*ssd_in))
-    # causal count: the kernel skips j > i, whose terms are exactly 0
-    tri = sq * (sq + 1) / 2
-    ssd_flops = sb * (2 * tri * sn + sh * (2 * tri * sp + 4 * sq * sn * sp))
-    ssd_bytes = 4 * (2 * sb * sh * sq * sp + 2 * sb * sh * sp * sn
-                     + 2 * sb * sq * sn + 2 * sb * sh * sq)
-    # the kernel's route: every product as three TF32 tensor-core
-    # products (split precision), so its bound is 3x the flops at the
-    # TF32 rate; on f32 CUDA cores it would be 1x at the f32 rate
+    ssd_flops, ssd_bytes = ssd_work(sb, sh, sq, sp, sn)
     ssd_bound_f32, ssd_by_f32 = bound_ms(ssd_bytes, ssd_flops)
     ssd_bound, ssd_by = bound_ms(ssd_bytes, 3 * ssd_flops, TF32_FLOPS_PER_S)
     print(f"ssd Bt {sb} H {sh} Q {sq} P {sp} N {sn} f32: "
@@ -1900,6 +2361,11 @@ def main() -> int:
                             "ssd_scan": ssd_chunk_step,
                             "cycle_lanes": cycle_lanes})
 
+    # ---- 11. the hybrid, vlm and audio families ----------------------
+    zamba2_ssd = family_serving(dev, gen, {
+        "amm_gather": amm_gather_u32, "banked_kv_decode": banked_kv_decode,
+        "ssd_scan": ssd_chunk_step, "cycle_lanes": cycle_lanes})
+
     kernels = [{
         "name": "amm_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/amm_gather.cu",
@@ -1918,7 +2384,8 @@ def main() -> int:
         "replaces": "src/repro/kernels/ssd_scan.py:58",
         "launches": serve_launches["ssd_scan"], "max_abs_err": ssd_err,
         "ms": ssd_ms, "kernel_ms": ssd_ms, "plain_ms": ssd_plain,
-        "bound_ms": ssd_bound, "bound_by": ssd_by, "library_ms": None},
+        "bound_ms": ssd_bound, "bound_by": ssd_by, "library_ms": None,
+        "zamba2_prefill": zamba2_ssd},
         schedule_kernel]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,14 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --preset full --batch 8 --prompt-len 4096 --gen 16
 
-Serves the dense, moe and ssm families (``--mla-absorb`` decodes MLA
-in latent space).  Runs on the CUDA device unless ``--device cpu`` is
-given.  Prompts come from ``np.random.default_rng(0)``, as in the JAX
-package's serve.py, so both serve the same tokens; the weights are
-random, from seed 0.
+Serves every family (``--mla-absorb`` decodes MLA in latent space).
+Runs on the CUDA device unless ``--device cpu`` is given.  Prompts, and
+the vlm's patch embeddings after them, come from
+``np.random.default_rng(0)``, as in the JAX package's serve.py, so both
+serve the same inputs; the weights are random, from seed 0.  As that
+serve.py does, the hybrid and encdec families make no prefill: they
+decode from an empty cache (the encdec against a zero cross cache),
+starting from each prompt's first token.
 """
 from __future__ import annotations
 
@@ -21,7 +24,7 @@ from repro_torch.configs import ARCH_NAMES, SHAPES, get_arch, tiny_variant
 from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_decode_step, make_prefill_step
 from repro_torch.memory import plan_memory
-from repro_torch.models import DTypePolicy, init_model
+from repro_torch.models import DTypePolicy, init_model, make_cache
 
 
 def _sync(device: torch.device) -> None:
@@ -61,14 +64,25 @@ def main(argv=None) -> dict:
     tokens = torch.from_numpy(
         rng.integers(0, arch.vocab, (args.batch, args.prompt_len))
     ).to(device=device, dtype=torch.int32)
+    batch = {"tokens": tokens}
+    if arch.family == "vlm":
+        batch["patches"] = torch.from_numpy(rng.standard_normal(
+            (args.batch, arch.n_patches, arch.vit_dim))).to(
+            device=device, dtype=torch.float32)
 
-    prefill_step = make_prefill_step(arch, policy, cache_len)
-    t0 = time.perf_counter()
-    logits, cache = prefill_step(params, {"tokens": tokens})
-    _sync(device)
-    print(f"prefill {args.batch}x{args.prompt_len}: "
-          f"{time.perf_counter() - t0:.3f}s")
-    last = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
+    if arch.family == "hybrid" or arch.is_encdec:
+        cache = make_cache(arch, cache_len, args.batch, policy, device)
+        if arch.is_encdec:
+            print("enc-dec: decoding against zero cross-cache (driver demo)")
+        last = tokens[:, :1]
+    else:
+        prefill_step = make_prefill_step(arch, policy, cache_len)
+        t0 = time.perf_counter()
+        logits, cache = prefill_step(params, batch)
+        _sync(device)
+        print(f"prefill {args.batch}x{args.prompt_len}: "
+              f"{time.perf_counter() - t0:.3f}s")
+        last = torch.argmax(logits[:, -1:, :], dim=-1).to(torch.int32)
 
     decode = make_decode_step(arch, policy, mla_absorb=args.mla_absorb)
     outs = []

@@ -1,5 +1,7 @@
-"""Language-model assembly — the dense and moe families (GQA or MLA
-attention) and the ssm family (Mamba2) of ``src/repro/models/lm.py``.
+"""Language-model assembly for every family of ``src/repro/models/lm.py``:
+dense and moe (GQA or MLA attention), ssm (Mamba2), hybrid (Mamba2 with
+a zamba2-style shared attention block), vlm (a patch-embedding prefix)
+and audio (an encoder-decoder with cross attention).
 
 Public entry points (the JAX package's, without its runtime config,
 which only carries mesh and remat hooks; MLA's absorbed decode is the
@@ -13,13 +15,17 @@ keyword ``mla_absorb``):
                                                     -> (logits, cache)
 
 Layers are stacked on a leading [L, ...] axis, as in the JAX params
-pytree, and a Python loop over ``l`` indexes them.  ``decode_step`` of
-the attention families writes the new K/V (or latent) rows into the
-cache it is given, in place, and returns a cache that shares those
-tensors (a functional copy would move the whole cache every step);
-clone the cache to decode twice from one state.  The hybrid, vlm and
-audio families raise ``NotImplementedError`` naming the ROADMAP item
-that ports them.
+pytree, and a Python loop over ``l`` indexes them.  ``decode_step``
+writes the new K/V (or latent) rows into the cache it is given, in
+place (the hybrid's shared K/V too), and returns a cache that shares
+those tensors (a functional copy would move the whole cache every
+step); clone the cache to decode twice from one state.
+
+Kept from the reference, as it is: the hybrid's ``prefill`` skips the
+shared block (its logits are the model's without it, and ``shared_k``/
+``shared_v`` stay zero); the vlm's ``prefill`` and ``decode_step``
+ignore ``patches``; an encdec cache holds at most
+``max(cache_len // cross_len_frac, 16)`` encoder positions.
 """
 from __future__ import annotations
 
@@ -30,9 +36,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models.attention import (AttnConfig, gqa_apply, gqa_decode,
-                                          gqa_init, gqa_prefill, mla_apply,
-                                          mla_decode, mla_init, mla_prefill)
+from repro_torch.models.attention import (AttnConfig, flash_attention,
+                                          gqa_apply, gqa_decode, gqa_init,
+                                          gqa_prefill, mla_apply, mla_decode,
+                                          mla_init, mla_prefill)
 from repro_torch.models.common import (DTypePolicy, Params, dense_init,
                                        norm_init, rms_norm, stack_layer_init,
                                        tree_map, truncated_normal_init)
@@ -43,20 +50,14 @@ from repro_torch.models.ssm import (SSMConfig, mamba2_apply, mamba2_decode,
                                     mamba2_init)
 
 
-def _require_ported(arch: ArchConfig) -> None:
-    if arch.family not in ("dense", "moe", "ssm"):
-        raise NotImplementedError(
-            f"{arch.name}: family {arch.family!r} is not ported yet; it "
-            f"waits for ROADMAP A9 (the {arch.family} family)")
-
-
 # ======================================================================
 # Config adapters
 # ======================================================================
-def attn_config(arch: ArchConfig) -> AttnConfig:
-    """The JAX adapter's (causal) config.  Its ``kv_repeat`` comes from
-    the mesh's TP degree, which is 1 without a mesh, and the port has
-    none; its non-causal form waits for the encoder families."""
+def attn_config(arch: ArchConfig, causal: bool = True) -> AttnConfig:
+    """The JAX adapter's config: causal for the decoders, non-causal for
+    the encoder's self attention and the cross attention.  Its
+    ``kv_repeat`` comes from the mesh's TP degree, which is 1 without a
+    mesh, and the port has none."""
     return AttnConfig(
         d_model=arch.d_model,
         n_heads=arch.n_heads,
@@ -64,6 +65,7 @@ def attn_config(arch: ArchConfig) -> AttnConfig:
         head_dim=arch.resolved_head_dim,
         qk_norm=arch.qk_norm,
         rope_theta=arch.rope_theta,
+        causal=causal,
         attn_type=arch.attn_type,
         q_lora_rank=arch.q_lora_rank,
         kv_lora_rank=arch.kv_lora_rank,
@@ -86,6 +88,15 @@ def ssm_config(arch: ArchConfig) -> SSMConfig:
         head_dim=arch.ssm_head_dim, expand=arch.ssm_expand,
         chunk=arch.ssm_chunk,
     )
+
+
+def _has_ssm(arch: ArchConfig) -> bool:
+    return arch.family in ("ssm", "hybrid")
+
+
+def _shared_every(arch: ArchConfig) -> int:
+    """The hybrid's shared-block cadence; 0 means no shared block."""
+    return arch.shared_attn_every if arch.family == "hybrid" else 0
 
 
 # ======================================================================
@@ -112,6 +123,28 @@ def _ssm_layer_init(gen: torch.Generator, arch: ArchConfig) -> Params:
             "ln": norm_init(arch.d_model, gen.device)}
 
 
+def _encoder_layer_init(gen: torch.Generator, arch: ArchConfig) -> Params:
+    return {"attn": gqa_init(gen, attn_config(arch, causal=False)),
+            "ln": norm_init(arch.d_model, gen.device),
+            "mlp": mlp_init(gen, arch.d_model, arch.d_ff, arch.gated_mlp),
+            "ln2": norm_init(arch.d_model, gen.device)}
+
+
+def _cross_decoder_layer_init(gen: torch.Generator, arch: ArchConfig
+                              ) -> Params:
+    p = _decoder_layer_init(gen, arch)
+    p["cross"] = gqa_init(gen, attn_config(arch, causal=False))
+    p["ln_cross"] = norm_init(arch.d_model, gen.device)
+    return p
+
+
+def _shared_block_init(gen: torch.Generator, arch: ArchConfig) -> Params:
+    """zamba2-style shared attention block, fed concat(h, emb0)."""
+    p = _decoder_layer_init(gen, arch)
+    p["w_cat"] = dense_init(gen, 2 * arch.d_model, arch.d_model)
+    return p
+
+
 def _layer(blocks: Params, l: int) -> Params:
     """Layer ``l`` of the stacked block params (views)."""
     return tree_map(lambda t: t[l], blocks)
@@ -129,7 +162,7 @@ def _layer_apply_full(p: Params, arch: ArchConfig, h: torch.Tensor
     Returns (h, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     x = rms_norm(h, p["ln"]["scale"])
-    if arch.family == "ssm":
+    if _has_ssm(arch):
         return h + mamba2_apply(p["mamba"], ssm_config(arch), x), aux
     attn = mla_apply if arch.attn_type == "mla" else gqa_apply
     h = h + attn(p["attn"], attn_config(arch), x)
@@ -138,6 +171,67 @@ def _layer_apply_full(p: Params, arch: ArchConfig, h: torch.Tensor
     if arch.family == "moe":
         aux = aux_load_balance_loss(p["moe"], moe_config(arch), x2)
     return h, aux
+
+
+def _shared_block_apply(p: Params, arch: ArchConfig, h: torch.Tensor,
+                        emb0: torch.Tensor, attend) -> torch.Tensor:
+    """The shared block on concat(h, emb0) projected back to d_model.
+    ``attend(attn_params, x)`` is its attention: the full-sequence GQA
+    in ``forward``, one step against the shared cache in
+    ``decode_step``."""
+    z = torch.cat([h, emb0.to(h.dtype)], dim=-1) @ p["w_cat"].to(h.dtype)
+    z = z + attend(p["attn"], rms_norm(z, p["ln"]["scale"]))
+    z = z + mlp_apply(p["mlp"], rms_norm(z, p["ln2"]["scale"]), arch.act)
+    return h + z
+
+
+def _cross_attn_full(p: Params, arch: ArchConfig, x: torch.Tensor,
+                     enc_out: torch.Tensor):
+    """Cross attention over every encoder position, without RoPE: q from
+    the decoder's ``x`` [B, S, D], K/V from ``enc_out`` [B, S_enc, D].
+    Returns (out [B, S, D], (k, v) [B, Hkv, S_enc, hd])."""
+    cfg = attn_config(arch, causal=False)
+    b, s, _ = x.shape
+    hd = cfg.head_dim
+    enc = enc_out.to(x.dtype)
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, hd)
+    k = (enc @ p["wk"].to(x.dtype)).reshape(b, -1, cfg.n_kv_heads, hd)
+    v = (enc @ p["wv"].to(x.dtype)).reshape(b, -1, cfg.n_kv_heads, hd)
+    k, v = k.transpose(1, 2), v.transpose(1, 2)
+    o = flash_attention(q.transpose(1, 2), k, v, causal=False)
+    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+    return o @ p["wo"].to(x.dtype), (k, v)
+
+
+def _cross_decoder_layer(bp: Params, arch: ArchConfig, h: torch.Tensor,
+                         enc_out: torch.Tensor):
+    """One encdec decoder layer over the whole sequence: causal self
+    attention, cross attention to ``enc_out``, MLP.  Returns (h, (self
+    K, self V, cross K, cross V)), each [B, Hkv, *, hd]."""
+    o, (kc, vc) = gqa_prefill(bp["attn"], attn_config(arch),
+                              rms_norm(h, bp["ln"]["scale"]))
+    h = h + o
+    o, (xk, xv) = _cross_attn_full(bp["cross"], arch,
+                                   rms_norm(h, bp["ln_cross"]["scale"]),
+                                   enc_out)
+    h = h + o
+    h = h + mlp_apply(bp["mlp"], rms_norm(h, bp["ln2"]["scale"]), arch.act)
+    return h, (kc, vc, xk, xv)
+
+
+def _cross_attn_decode(p: Params, arch: ArchConfig, x: torch.Tensor,
+                       ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
+    """One decoder token against the cross cache: x [B, D], ck/cv
+    [B, Hkv, S_enc, hd]; f32 scores over every cached position, no
+    mask.  Returns [B, 1, D]."""
+    b = x.shape[0]
+    hd = arch.resolved_head_dim
+    g = arch.n_heads // arch.n_kv_heads
+    q = (x @ p["wq"].to(x.dtype)).reshape(b, arch.n_kv_heads, g, hd)
+    s = (q.float() @ ck.float().transpose(-1, -2)) / math.sqrt(hd)
+    o = torch.softmax(s, dim=-1) @ cv.float()
+    o = o.reshape(b, 1, arch.n_heads * hd).to(x.dtype)
+    return o @ p["wo"].to(x.dtype)
 
 
 # ======================================================================
@@ -150,7 +244,6 @@ def init_model(seed: int, arch: ArchConfig,
     ``device`` (the CUDA device when None), with the JAX initializer's
     distributions and pytree layout (not its values: carry JAX params
     across with ``convert.params_from_numpy``)."""
-    _require_ported(arch)
     policy = policy or DTypePolicy.standard()
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
     d = arch.d_model
@@ -161,10 +254,22 @@ def init_model(seed: int, arch: ArchConfig,
     }
     if not arch.tie_embeddings:
         params["head"] = dense_init(gen, d, arch.padded_vocab)
-    layer_init = _ssm_layer_init if arch.family == "ssm" \
-        else _decoder_layer_init
+    if _has_ssm(arch):
+        layer_init = _ssm_layer_init
+    elif arch.is_encdec:
+        layer_init = _cross_decoder_layer_init
+    else:
+        layer_init = _decoder_layer_init
     params["blocks"] = stack_layer_init(partial(layer_init, arch=arch), gen,
                                         arch.n_layers)
+    if _shared_every(arch):
+        params["shared"] = _shared_block_init(gen, arch)
+    if arch.is_encdec:
+        params["enc_blocks"] = stack_layer_init(
+            partial(_encoder_layer_init, arch=arch), gen, arch.enc_layers)
+        params["enc_norm"] = norm_init(d, gen.device)
+    if arch.family == "vlm":
+        params["patch_proj"] = dense_init(gen, arch.vit_dim, d)
     return tree_map(lambda t: t.to(policy.params)
                     if t.dtype == torch.float32 else t, params)
 
@@ -199,21 +304,51 @@ def _logits(params: Params, h: torch.Tensor, cd: torch.dtype
     return h @ w
 
 
+def _encoder_forward(params: Params, arch: ArchConfig,
+                     frames: torch.Tensor) -> torch.Tensor:
+    """The encoder over ``frames`` [B, S_enc, D] (non-causal), on the
+    f32 block params cast at each product, as JAX runs it."""
+    acfg = attn_config(arch, causal=False)
+    h = frames
+    for l in range(arch.enc_layers):
+        bp = _layer(params["enc_blocks"], l)
+        h = h + gqa_apply(bp["attn"], acfg, rms_norm(h, bp["ln"]["scale"]))
+        h = h + mlp_apply(bp["mlp"], rms_norm(h, bp["ln2"]["scale"]),
+                          arch.act)
+    return rms_norm(h, params["enc_norm"]["scale"])
+
+
 def forward(params: Params, arch: ArchConfig, batch: "dict[str, torch.Tensor]",
             policy: DTypePolicy | None = None
             ) -> "tuple[torch.Tensor, torch.Tensor]":
-    """Full-sequence forward.  batch: {"tokens": [B, S]}.  Returns
-    (logits [B, S, V], aux loss: the MoE load-balance loss summed over
-    the layers, 0 for the other families)."""
-    _require_ported(arch)
+    """Full-sequence forward.  batch: "tokens" [B, S]; vlm: + "patches"
+    [B, P, vit_dim], whose projections come before the tokens (logits
+    [B, P + S, V]); audio: + "frames" [B, S_enc, d_model].  Returns
+    (logits, aux loss: the MoE load-balance loss summed over the layers,
+    0 for the other families)."""
     policy = policy or DTypePolicy.standard()
     cd = policy.compute
     h = embed_tokens(params, arch, batch["tokens"], cd)
-    blocks = _cast_blocks(params["blocks"], cd)
+    if arch.family == "vlm":
+        prefix = batch["patches"].to(cd) @ params["patch_proj"].to(cd)
+        h = torch.cat([prefix, h], dim=1)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if arch.is_encdec:
+        # the encdec stacks run uncast, as in JAX
+        enc_out = _encoder_forward(params, arch, batch["frames"].to(cd))
+        for l in range(arch.n_layers):
+            h, _ = _cross_decoder_layer(_layer(params["blocks"], l), arch,
+                                        h, enc_out)
+        return _logits(params, h, cd), aux
+    blocks = _cast_blocks(params["blocks"], cd)
+    every, emb0 = _shared_every(arch), h
+    acfg = attn_config(arch)
     for l in range(arch.n_layers):
         h, a = _layer_apply_full(_layer(blocks, l), arch, h)
         aux = aux + a
+        if every and l % every == 0:
+            h = _shared_block_apply(params["shared"], arch, h, emb0,
+                                    lambda ap, x: gqa_apply(ap, acfg, x))
     return _logits(params, h, cd), aux
 
 
@@ -222,9 +357,12 @@ def loss_fn(params: Params, arch: ArchConfig,
             policy: DTypePolicy | None = None
             ) -> "tuple[torch.Tensor, dict]":
     """Next-token cross entropy + z-loss + 0.01 x the MoE aux loss.
-    batch: {"tokens", "labels"} [B, S]; labels < 0 are masked."""
+    batch: forward's, with "labels" [B, S]; labels < 0 are masked.  The
+    vlm's logits are cut to the labels' length (the token positions)."""
     logits, aux = forward(params, arch, batch, policy)
     labels = batch["labels"].long()
+    if arch.family == "vlm":
+        logits = logits[:, -labels.shape[1]:, :]
     lg = logits.float()
     m = torch.amax(lg, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(lg - m), dim=-1)) + m[..., 0]
@@ -249,21 +387,23 @@ def make_cache(arch: ArchConfig, seq_len: int, batch: int,
                policy: DTypePolicy | None = None,
                device: "str | torch.device | None" = None) -> Params:
     """The decode cache of capacity ``seq_len`` on ``device`` (the CUDA
-    device when None): K/V [L, B, Hkv, S, hd] (MLA: the latent c_kv
-    [L, B, S, kvr] and the shared rope key k_rope [L, B, S, r]) in the
-    compute dtype; the ssm family's state [L, B, H, P, N] (f32) and
-    conv tail [L, B, W-1, C] (compute dtype)."""
-    _require_ported(arch)
+    device when None), in the compute dtype unless said: self K/V
+    [L, B, Hkv, S, hd] (MLA: the latent c_kv [L, B, S, kvr] and the
+    shared rope key k_rope [L, B, S, r]); an encdec's cross K/V
+    [L, B, Hkv, max(S // cross_len_frac, 16), hd]; the ssm and hybrid
+    state [L, B, H, P, N] (f32) and conv tail [L, B, W-1, C]; the
+    hybrid's shared-block K/V [ceil(L / every), B, Hkv, S, hd]."""
     policy = policy or DTypePolicy.standard()
     cd = policy.compute
     dev = resolve_device(device)
     L, B = arch.n_layers, batch
+    hd = arch.resolved_head_dim
 
     def zeros(*shape, dtype=cd):
         return torch.zeros(shape, dtype=dtype, device=dev)
 
     cache: Params = {"len": zeros(dtype=torch.int32)}
-    if arch.family == "ssm":
+    if _has_ssm(arch):
         scfg = ssm_config(arch)
         cache["ssm_h"] = zeros(L, B, scfg.n_heads, scfg.head_dim,
                                scfg.d_state, dtype=torch.float32)
@@ -273,9 +413,17 @@ def make_cache(arch: ArchConfig, seq_len: int, batch: int,
         cache["c_kv"] = zeros(L, B, seq_len, arch.kv_lora_rank)
         cache["k_rope"] = zeros(L, B, seq_len, arch.rope_head_dim)
     else:
-        hd = arch.resolved_head_dim
         cache["k"] = zeros(L, B, arch.n_kv_heads, seq_len, hd)
         cache["v"] = zeros(L, B, arch.n_kv_heads, seq_len, hd)
+    if arch.is_encdec:
+        s_enc = max(seq_len // arch.cross_len_frac, 16)
+        cache["cross_k"] = zeros(L, B, arch.n_kv_heads, s_enc, hd)
+        cache["cross_v"] = zeros(L, B, arch.n_kv_heads, s_enc, hd)
+    every = _shared_every(arch)
+    if every:
+        n_uses = -(-L // every)
+        cache["shared_k"] = zeros(n_uses, B, arch.n_kv_heads, seq_len, hd)
+        cache["shared_v"] = zeros(n_uses, B, arch.n_kv_heads, seq_len, hd)
     return cache
 
 
@@ -286,11 +434,14 @@ def prefill(params: Params, arch: ArchConfig,
             batch: "dict[str, torch.Tensor]", cache_len: int,
             policy: DTypePolicy | None = None
             ) -> "tuple[torch.Tensor, Params]":
-    """Run the full-sequence forward and fill a decode cache of capacity
-    ``cache_len`` (>= prompt length; the rest stays 0).  The layer
-    weights stay f32, cast at each product.  Returns (logits of the
-    last position [B, 1, V], cache)."""
-    _require_ported(arch)
+    """Run the full-sequence forward over the tokens and fill a decode
+    cache of capacity ``cache_len`` (>= prompt length; the rest stays
+    0).  The layer weights stay f32, cast at each product.  An encdec
+    runs its encoder over ``batch["frames"]`` and *replaces* the cross
+    cache by the first ``s_enc`` encoder positions (fewer when there are
+    fewer frames).  The hybrid skips its shared block and the vlm its
+    patches, as the reference does.  Returns (logits of the last
+    position [B, 1, V], cache)."""
     policy = policy or DTypePolicy.standard()
     cd = policy.compute
     tokens = batch["tokens"]
@@ -300,10 +451,21 @@ def prefill(params: Params, arch: ArchConfig,
     cache = make_cache(arch, cache_len, b, policy, tokens.device)
     h = embed_tokens(params, arch, tokens, cd)
     acfg = attn_config(arch)
+    if arch.is_encdec:
+        enc_out = _encoder_forward(params, arch, batch["frames"].to(cd))
+        s_enc = cache["cross_k"].shape[3]
+        xks, xvs = [], []
     for l in range(arch.n_layers):
         bp = _layer(params["blocks"], l)
+        if arch.is_encdec:
+            h, (kc, vc, xk, xv) = _cross_decoder_layer(bp, arch, h, enc_out)
+            cache["k"][l, :, :, :s] = kc.to(cd)
+            cache["v"][l, :, :, :s] = vc.to(cd)
+            xks.append(xk[:, :, :s_enc])
+            xvs.append(xv[:, :, :s_enc])
+            continue
         xn = rms_norm(h, bp["ln"]["scale"])
-        if arch.family == "ssm":
+        if _has_ssm(arch):
             o, (hf, conv_tail) = mamba2_apply(bp["mamba"], ssm_config(arch),
                                               xn, return_state=True)
             cache["ssm_h"][l] = hf
@@ -317,8 +479,11 @@ def prefill(params: Params, arch: ArchConfig,
             cache["k"][l, :, :, :s] = kc.to(cd)
             cache["v"][l, :, :, :s] = vc.to(cd)
         h = h + o
-        if arch.family != "ssm":
+        if not _has_ssm(arch):
             h = h + _ffn(bp, arch, rms_norm(h, bp["ln2"]["scale"]))
+    if arch.is_encdec:
+        cache["cross_k"] = torch.stack(xks).to(cd)
+        cache["cross_v"] = torch.stack(xvs).to(cd)
     cache["len"] = torch.tensor(s, dtype=torch.int32, device=tokens.device)
     return _logits(params, h[:, -1:, :], cd), cache
 
@@ -328,16 +493,18 @@ def decode_step(params: Params, arch: ArchConfig, cache: Params,
                 *, mla_absorb: bool = False
                 ) -> "tuple[torch.Tensor, Params]":
     """One decode step.  tokens: [B, 1] new token ids.  Returns (logits
-    [B, 1, V], a cache with ``len`` one higher).  The attention
-    families write their new rows into ``cache``'s tensors in place;
-    the ssm family returns new state tensors."""
-    _require_ported(arch)
+    [B, 1, V], a cache with ``len`` one higher).  The attention caches
+    (self K/V or latent, the hybrid's shared K/V) take their new rows in
+    place; the ssm state comes back as new tensors; an encdec reads its
+    cross cache as it is."""
     policy = policy or DTypePolicy.standard()
     cd = policy.compute
     h = embed_tokens(params, arch, tokens, cd)
     pos = cache["len"]
-    if arch.family == "ssm":
+    acfg = attn_config(arch)
+    if _has_ssm(arch):
         scfg = ssm_config(arch)
+        every, emb0 = _shared_every(arch), h
         hs, convs = [], []
         for l in range(arch.n_layers):
             bp = _layer(params["blocks"], l)
@@ -348,10 +515,15 @@ def decode_step(params: Params, arch: ArchConfig, cache: Params,
             h = h + o
             hs.append(hc)
             convs.append(cc)
+            if every and l % every == 0:
+                kv = (cache["shared_k"][l // every],
+                      cache["shared_v"][l // every])
+                h = _shared_block_apply(
+                    params["shared"], arch, h, emb0,
+                    lambda ap, x: gqa_decode(ap, acfg, x, kv, pos)[0])
         cache = {**cache, "ssm_h": torch.stack(hs),
                  "ssm_conv": torch.stack(convs)}
     else:
-        acfg = attn_config(arch)
         for l in range(arch.n_layers):
             bp = _layer(params["blocks"], l)
             xn = rms_norm(h, bp["ln"]["scale"])
@@ -363,6 +535,11 @@ def decode_step(params: Params, arch: ArchConfig, cache: Params,
                 o, _ = gqa_decode(bp["attn"], acfg, xn,
                                   (cache["k"][l], cache["v"][l]), pos)
             h = h + o
+            if arch.is_encdec:
+                xc = rms_norm(h, bp["ln_cross"]["scale"])
+                h = h + _cross_attn_decode(bp["cross"], arch, xc[:, 0],
+                                           cache["cross_k"][l],
+                                           cache["cross_v"][l])
             h = h + _ffn(bp, arch, rms_norm(h, bp["ln2"]["scale"]))
     cache = {**cache, "len": cache["len"] + 1}
     return _logits(params, h, cd), cache

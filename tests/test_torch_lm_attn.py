@@ -317,33 +317,23 @@ def test_serve_attention_families_on_cpu(argv):
     assert out["tok_per_s"] > 0
 
 
-@pytest.mark.parametrize("name,family", [
-    ("zamba2-2.7b", "hybrid"), ("internvl2-1b", "vlm"),
-    ("seamless-m4t-medium", "audio")])
-def test_unported_families_name_their_roadmap_item(name, family):
-    arch = _archs(name)[1]
-    assert arch.family == family
-    msg = f"ROADMAP A9 \\(the {family} family\\)"
-    with pytest.raises(NotImplementedError, match=msg):
-        init_model(0, arch, device="cpu")
-    with pytest.raises(NotImplementedError, match=msg):
-        make_cache(arch, 8, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match=msg):
-        serve.main(["--arch", name, "--device", "cpu", "--gen", "1"])
-
-
-@pytest.mark.parametrize("name", [n for n in configs.ARCH_NAMES
-                                  if configs.get_arch(n).family
-                                  in ("dense", "moe", "ssm")])
+@pytest.mark.parametrize("name", configs.ARCH_NAMES)
 def test_arch_smoke_forward_and_decode_from_an_empty_cache(name):
     """The counterparts of tests/test_models.py's per-arch smokes for
-    every ported arch: forward's logits over [2, 32] tokens, and one
-    decode step from a zero cache of capacity 16."""
+    every arch: forward's logits over [2, 32] tokens (after the vlm's
+    patches; the audio family's encoder over 32 frames), and one decode
+    step from a zero cache of capacity 16."""
     arch = _archs(name)[1]
     params = init_model(0, arch, device="cpu")
     tokens = torch.full((2, 32), 3, dtype=torch.int32)
-    logits, aux = forward(params, arch, {"tokens": tokens})
-    assert logits.shape == (2, 32, arch.padded_vocab)
+    batch, n_pre = {"tokens": tokens}, 0
+    if arch.family == "vlm":
+        n_pre = arch.n_patches
+        batch["patches"] = torch.ones((2, n_pre, arch.vit_dim))
+    if arch.is_encdec:
+        batch["frames"] = torch.ones((2, 32, arch.d_model))
+    logits, aux = forward(params, arch, batch)
+    assert logits.shape == (2, n_pre + 32, arch.padded_vocab)
     assert bool(torch.isfinite(logits).all()) and bool(torch.isfinite(aux))
     logits, cache = decode_step(params, arch, make_cache(arch, 16, 2,
                                                          device="cpu"),

@@ -315,12 +315,6 @@ def test_serve_tiny_on_cpu():
     assert out["tok_per_s"] > 0
 
 
-def test_other_families_wait_for_their_roadmap_item():
-    arch = configs.tiny_variant(configs.get_arch("zamba2-2.7b"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        init_model(0, arch, device="cpu")
-
-
 def test_entry_points_default_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     arch = configs.tiny_variant(configs.get_arch(NAME))
