@@ -177,7 +177,38 @@ fails:
    ``forward`` at B 2 x S 512 with 64 frames (all of which the cross
    cache holds) within phase 10's limits; an f32 prefill over 24 frames
    (16 of them cached) plus three decode steps on the card against the
-   CPU within 1e-3, then the self and cross K/V caches.
+   CPU within 1e-3, then the self and cross K/V caches;
+12. training, every kernel's launch count set to 0 before each path and
+   read after it (only mamba2-130m's steps launch ``ssd_chunk``, once
+   a chunk of each layer in the forward; the backward is the plain
+   version's, under autograd): (a) mamba2-130m at full width (24
+   layers, d_model 768, 24 SSD heads of 64, state 128, chunk 256, vocab
+   50280; nothing cut) through ``repro_torch.launch.train.main`` at
+   batch 8, seq 1024, 20 steps, remat none, accum 1: the loss must fall
+   and ``ssd_chunk`` launch 24 x 4 = 96 times a step; (b) one
+   ``make_train_step`` step of it at B 1 x S 512 under an f32 policy,
+   from one set of weights and one ``SyntheticCorpus`` batch, on the
+   card (the kernel's forward) and on the CPU (the plain version): the
+   loss and ``grad_norm`` within 1e-3 relative, every gradient leaf
+   finite and nonzero on the card and within 1e-3 relative L2 of the
+   CPU's, the updated params moving the same way but on at most 1e-3 of
+   their entries (at step 1 an update is lr x sign(g)) and by at most
+   2 lr + 1e-6 anywhere; (c) m100 through ``train.main`` (12 layers,
+   d_model 640, vocab 16384; nothing cut) at the reference's defaults
+   (batch 8, seq 128, 50 steps) must learn, a 16-step
+   ``--simulate-failure 8`` run restore and finish, a 20-step
+   ``--compress-grads`` run learn; its checkpoint restores bit-equal on
+   the card and the CPU, and a state
+   written from the card (a bf16 leaf among it) restores on the CPU
+   bit-equal; (d) for (a)'s shape and m100: the step's host-clock ms
+   (fenced, median of 3) and ``train.main``'s steady step, tokens/s, the
+   device's busy share of a profiled step, the peak memory, and a bound
+   of 6 x params x tokens at the bf16 peak plus, for mamba2, 3
+   (split-TF32) x (forward + 2 x forward for the backward) x the SSD
+   chunks' flops at the TF32 peak; the SSD kernel's forward launches
+   and device ms in the step; (a)'s step split by ``torch.profiler``
+   into forward, backward and AdamW; the plain backward of one chunk at
+   (a)'s shape.
 
 Every time is a median of device time between CUDA events (see
 ``time_ms``).  It then prints the ``kernels`` JSON line (kernel, plain,
@@ -282,6 +313,16 @@ CPU_FRAMES = 24               # more than the 16 positions cached at S 35
 # zamba2's bf16 decode against the f32 forward, at most this multiple of
 # the bf16 forward's own distance from it (see phase 11a)
 BF16_DEPTH_MARGIN = 1.25
+# phase 12: training mamba2-130m at full width, 4 chunks a sequence
+TRAIN_ARCH = "mamba2-130m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 20
+GRAD_SEQ = 512                # the f32 card-vs-CPU step, B 1
+# card against CPU in f32, per gradient leaf (relative L2), loss and
+# grad_norm (relative): the SSD chunk's 1e-4 gate over 24 layers
+GRAD_TOL = 1e-3
+# the share of updated entries that may move the other way: at step 1 an
+# update is lr * sign(g) (+ decay), which flips where g is near 0
+FLIP_SHARE = 1e-3
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1894,6 +1935,306 @@ def family_serving(dev: torch.device, gen: torch.Generator,
             "bound_ms": z_bound, "bound_by": z_by, "max_abs_err": z_err}
 
 
+def _tree_items(tree: dict) -> "dict[str, torch.Tensor]":
+    """{"a/b": tensor} of a nested dict, keys sorted."""
+    from repro_torch.models.common import named_leaves
+    return {"/".join(path): t for path, t in named_leaves(tree)}
+
+
+def _rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return float((got.float().cpu() - want.cpu()).norm()
+                 / max(float(want.norm()), 1e-30))
+
+
+def _train_batch(vocab: int, b: int, s: int, dev: torch.device) -> dict:
+    """The first batch ``train.main`` draws for this shape."""
+    from repro_torch.data import DataConfig, SyntheticCorpus
+    nb = next(SyntheticCorpus(DataConfig(vocab=vocab, seq_len=s,
+                                         global_batch=b)).batch_iter())
+    return {k: torch.from_numpy(v).to(dev) for k, v in nb.items()}
+
+
+def train_main(kernels: dict, what: str, argv: list, want: dict) -> dict:
+    """``repro_torch.launch.train.main`` (which asserts that the loss
+    fell), its launches counted from 0 and held to ``want``; prints the
+    median step of the steady state (the first two steps dropped)."""
+    from repro_torch.launch import train
+    zero_counts(kernels)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = train.main(argv)
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    out["launches"] = hold_counts(kernels, what, want)
+    steady = out["step_ms"][2:] or out["step_ms"]
+    out["median_ms"] = statistics.median(steady)
+    print(f"{what}: {out['steps']} steps in {out['wall_s']:.1f} s (init "
+          f"and data included), loss {out['first_loss']:.4f} -> "
+          f"{out['final_loss']:.4f}, step {out['median_ms']:.3f} ms (host "
+          f"clock up to the loss on the host, median of {len(steady)})")
+    return out
+
+
+def training(dev: torch.device, kernels: dict) -> dict:
+    """Phase 12: training on the card.  (a) mamba2-130m at full width
+    through ``launch.train.main``: the loss falls and ``ssd_chunk``
+    launches 24 layers x 4 chunks a step; (b) one train step of it in
+    f32 on the card (the kernel's forward) and the CPU (the plain
+    version): loss, every gradient leaf and the updated params held;
+    (c) m100 through ``train.main``: learns, recovers from a simulated failure,
+    learns with compressed gradients; a checkpoint written from the card
+    restores on the CPU bit-equal; (d) step times, the step's split by
+    ``torch.profiler``, busy share, peak memory and bounds.  Returns the
+    SSD kernel's numbers on this path."""
+    import shutil
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.kernels.ssd_scan import ssd_chunk_step_plain
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.launch.train import M100
+    from repro_torch.models import (DTypePolicy, count_params, init_model,
+                                    loss_fn, ssm_config)
+    from repro_torch.models.common import tree_map
+    from repro_torch.optim import adamw
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    ckpt_root = REPO / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    arch = get_arch(TRAIN_ARCH)
+    scfg = ssm_config(arch)
+    per_step = arch.n_layers * (TRAIN_SEQ // scfg.chunk)
+    policy = DTypePolicy.standard()
+    f32 = DTypePolicy(torch.float32, torch.float32, torch.float32)
+    rt = RuntimeConfig(accum_steps=1, remat="none")
+
+    # ---- (a) mamba2-130m at full width through train.main
+    run_a = train_main(
+        kernels, f"train {TRAIN_ARCH} full B {TRAIN_BATCH} S {TRAIN_SEQ}",
+        ["--arch", TRAIN_ARCH, "--preset", "full", "--batch",
+         str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--steps",
+         str(TRAIN_STEPS), "--ckpt-dir", str(ckpt_root / "mamba2"),
+         "--ckpt-every", str(10 * TRAIN_STEPS), "--log-every", "5"],
+        {"ssd_scan": per_step * TRAIN_STEPS})
+
+    # ---- (b) one f32 step on the card and on the CPU
+    opt_cfg = adamw.AdamWConfig(warmup_steps=20, total_steps=TRAIN_STEPS)
+    params = init_model(0, arch, f32, dev)
+    batch = _train_batch(arch.vocab, 1, GRAD_SEQ, dev)
+    step32 = make_train_step(arch, rt, f32, opt_cfg)
+    zero_counts(kernels)
+    p_card, _, st_card = step32(params, adamw.init(params, f32), batch)
+    loss_card, _, g_card = loss_and_grads(params, arch, batch, rt, f32)
+    torch.cuda.synchronize()
+    n_grad = arch.n_layers * (GRAD_SEQ // scfg.chunk)
+    hold_counts(kernels, "f32 train step on the card (step + gradients)",
+                {"ssd_scan": 2 * n_grad})
+    hp = tree_map(lambda t: t.cpu(), params)
+    hb = {k: v.cpu() for k, v in batch.items()}
+    t0 = time.perf_counter()
+    p_cpu, _, st_cpu = make_train_step(arch, rt, f32, opt_cfg)(
+        hp, adamw.init(hp, f32), hb)
+    loss_cpu, _, g_cpu = loss_and_grads(hp, arch, hb, rt, f32)
+    cpu_s = time.perf_counter() - t0
+    for k in ("loss", "grad_norm"):
+        rel = abs(float(st_card[k]) - float(st_cpu[k])) / abs(
+            float(st_cpu[k]))
+        print(f"f32 step card vs cpu {k}: {float(st_card[k]):.7g} vs "
+              f"{float(st_cpu[k]):.7g}, relative {rel:.3g} (limit "
+              f"{GRAD_TOL:g})")
+        check(rel <= GRAD_TOL, f"f32 step {k}: card vs cpu {rel:.3g}")
+    check(abs(float(loss_card) - float(st_card["loss"]))
+          <= 1e-6 * abs(float(st_card["loss"])),
+          "loss_and_grads and the step disagree on the loss")
+    worst_g, worst_name = 0.0, ""
+    gc, gh = _tree_items(g_card), _tree_items(g_cpu)
+    check(sorted(gc) == sorted(_tree_items(params)), "a param has no "
+          "gradient")
+    for name, g in gc.items():
+        check(bool(torch.isfinite(g).all()), f"gradient {name} not finite")
+        check(float(g.abs().max()) > 0, f"gradient {name} is zero on the "
+              "card")
+        rel = _rel_l2(g, gh[name])
+        if rel > worst_g:
+            worst_g, worst_name = rel, name
+        check(rel <= GRAD_TOL, f"gradient {name}: card vs cpu relative L2 "
+              f"{rel:.3g} > {GRAD_TOL:g}")
+    lr1 = float(adamw.cosine_lr(opt_cfg, torch.tensor(1)))
+    flips = total = 0
+    worst_move = 0.0
+    ref, old = _tree_items(p_cpu), _tree_items(hp)
+    for name, new in _tree_items(p_card).items():
+        d_card, d_cpu = new.cpu() - old[name], ref[name] - old[name]
+        flips += int((torch.sign(d_card) != torch.sign(d_cpu)).sum())
+        total += d_card.numel()
+        worst_move = max(worst_move, float((d_card - d_cpu).abs().max()))
+    print(f"f32 step card vs cpu ({TRAIN_ARCH} full, B 1 x S {GRAD_SEQ}, "
+          f"{n_grad} SSD chunks a pass): {len(gc)} gradient leaves, all "
+          f"finite and nonzero on the card; worst relative L2 {worst_g:.3g} "
+          f"({worst_name}; limit {GRAD_TOL:g}); updated params: {flips} of "
+          f"{total} entries moved the other way (limit {FLIP_SHARE:g} of "
+          f"them), the largest difference {worst_move:.3g} (limit 2 lr + "
+          f"1e-6 = {2 * lr1 + 1e-6:.3g}: a flipped sign, plus each side's "
+          f"f32 rounding of params up to ~3); the CPU's step and gradients "
+          f"took {cpu_s:.1f} s")
+    check(flips <= FLIP_SHARE * total, f"{flips} of {total} updates flipped")
+    check(worst_move <= 2 * lr1 + 1e-6, "an updated param moved more than a "
+          "sign flip can move it")
+    del params, p_card, p_cpu, g_card, g_cpu, hp, gc, gh
+    torch.cuda.empty_cache()
+
+    # ---- (c) m100 through train.main
+    run_m = train_main(kernels, "train m100 (defaults: B 8 x S 128, 50 "
+                       "steps)", ["--preset", "m100", "--ckpt-dir",
+                                  str(ckpt_root / "m100"), "--log-every",
+                                  "10"], {})
+    crash = train_main(kernels, "train m100 --simulate-failure 8",
+                       ["--preset", "m100", "--steps", "16", "--ckpt-dir",
+                        str(ckpt_root / "m100_crash"), "--ckpt-every", "50",
+                        "--simulate-failure", "8", "--log-every", "8"], {})
+    check(crash["steps"] >= 16, "the crash run did not finish its steps")
+    train_main(kernels, "train m100 --compress-grads",
+               ["--preset", "m100", "--steps", "20", "--ckpt-dir",
+                str(ckpt_root / "m100_comp"), "--compress-grads",
+                "--log-every", "10"], {})
+    mgr = CheckpointManager(str(ckpt_root / "m100"))
+    check(mgr.steps() == [20, 40], f"m100 checkpoints {mgr.steps()}")
+    mp = init_model(0, M100, policy, dev)
+    tmpl = {"params": mp, "opt": adamw.init(mp, policy)}
+    on_card = mgr.restore(tmpl)
+    on_cpu = mgr.restore(tree_map(lambda t: t.cpu(), tmpl))
+    on_cpu = _tree_items(on_cpu)
+    check(all(torch.equal(a.cpu(), on_cpu[k])
+              for k, a in _tree_items(on_card).items()),
+          "train.main's checkpoint restores differently on card and CPU")
+    # a state written from the card, a bf16 leaf among it
+    mb = _train_batch(M100.vocab, 8, 128, dev)
+    p1, o1, _ = make_train_step(M100, rt, policy)(mp, adamw.init(mp, policy),
+                                                    mb)
+    state = {"params": {**p1, "embed_bf16": p1["embed"].to(torch.bfloat16)},
+             "opt": o1}
+    card_mgr = CheckpointManager(str(ckpt_root / "card"))
+    card_mgr.save(1, state, blocking=True)
+    back = _tree_items(card_mgr.restore(tree_map(lambda t: t.cpu(), state)))
+    same = [torch.equal(a.cpu(), back[k]) and a.dtype == back[k].dtype
+            for k, a in _tree_items(state).items()]
+    check(all(same), "a checkpoint written on the card restores on the CPU "
+          "with other bits")
+    print(f"checkpoints: m100 train.main's step 40 restores bit-equal on the "
+          f"card and the CPU; a state written from the card ({len(same)} "
+          "leaves, a bf16 one among them) restores on the CPU bit-equal")
+    del mp, tmpl, on_card, on_cpu, p1, o1, state, back
+    torch.cuda.empty_cache()
+
+    # ---- (d) numbers: step split, busy share, peak memory, bounds
+    def numbers(a, b: int, s: int, n_ssd: int, what: str, run: dict,
+                split: bool) -> dict:
+        params = init_model(0, a, policy, dev)
+        opt = adamw.init(params, policy)
+        batch = _train_batch(a.vocab, b, s, dev)
+        step = make_train_step(a, rt, policy, adamw.AdamWConfig(
+            warmup_steps=20, total_steps=TRAIN_STEPS))
+        step(params, opt, batch)                 # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, _ = wall_ms(lambda: step(params, opt, batch))
+        peak = torch.cuda.max_memory_allocated()
+        events, prof_wall = device_events(lambda: step(params, opt, batch))
+        busy = sum(ms for _, ms in events.values())
+        ssd = [(n, ms) for k, (n, ms) in events.items() if "ssd_" in k]
+        n_par = count_params(params)
+        tokens = b * s
+        flops = 6 * n_par * tokens
+        bound = flops / BF16_FLOPS_PER_S * 1e3
+        ssd_f = 0.0
+        if n_ssd:
+            c = ssm_config(a)
+            ssd_f = ssd_work(b, c.n_heads, c.chunk, c.head_dim,
+                             c.d_state)[0] * n_ssd
+            bound += 3 * 3 * ssd_f / TF32_FLOPS_PER_S * 1e3
+        out = {"step_ms": step_ms, "main_step_ms": run["median_ms"],
+               "tok_per_s": tokens / run["median_ms"] * 1e3,
+               "busy": busy / step_ms, "peak_gb": peak / 1e9,
+               "bound_ms": bound, "params": n_par}
+        print(f"{what}: step {step_ms:.3f} ms (host clock, fenced, median "
+              f"of 3; train.main's {run['median_ms']:.3f} ms), "
+              f"{out['tok_per_s']:.1f} tokens/s in train.main; device "
+              f"busy {busy:.3f} ms in "
+              f"{sum(n for n, _ in events.values())} launches, "
+              f"{out['busy']:.1%} of the step "
+              f"(profiled wall {prof_wall:.3f} ms); peak memory "
+              f"{out['peak_gb']:.2f} GB; bound {bound:.3f} ms = 6 x "
+              f"{n_par / 1e6:.2f} M params x {tokens} tokens at "
+              f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s"
+              + (f" + 3 (split-TF32) x (1 forward + 2 backward) x "
+                 f"{ssd_f / 1e9:.3f} GFLOP of {n_ssd} SSD chunks at "
+                 f"{TF32_FLOPS_PER_S / 1e12:.0f} TFLOP/s" if n_ssd else "")
+              + f"; the step is {step_ms / bound:.1f}x it")
+        if ssd:
+            out["ssd_fwd_launches"] = sum(n for n, _ in ssd)
+            out["ssd_fwd_ms"] = sum(ms for _, ms in ssd)
+            print(f"{what}: the SSD kernel's forward, {n_ssd} calls "
+                  f"({out['ssd_fwd_launches']} device kernels), "
+                  f"{out['ssd_fwd_ms']:.3f} ms of device time")
+        if split:
+            leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
+            fwd, _ = device_events(lambda: loss_fn(leaves, a, batch, policy,
+                                                   rt=rt))
+            del leaves
+            both, _ = device_events(
+                lambda: loss_and_grads(params, a, batch, rt, policy))
+            _, _, grads = loss_and_grads(params, a, batch, rt, policy)
+            upd, _ = device_events(lambda: adamw.update(
+                grads, opt, params, adamw.AdamWConfig(), policy))
+            f_ms = sum(ms for _, ms in fwd.values())
+            fb_ms = sum(ms for _, ms in both.values())
+            u_ms = sum(ms for _, ms in upd.values())
+            out.update(forward_ms=f_ms, backward_ms=fb_ms - f_ms,
+                       adamw_ms=u_ms)
+            print(f"{what} split (profiler, device): forward {f_ms:.3f} ms, "
+                  f"backward {fb_ms - f_ms:.3f} ms, AdamW {u_ms:.3f} ms")
+            print_top(f"{what} backward + forward", both, step_ms)
+            del grads
+        del params, opt
+        torch.cuda.empty_cache()
+        return out
+
+    num_a = numbers(arch, TRAIN_BATCH, TRAIN_SEQ, per_step,
+                    f"{TRAIN_ARCH} B {TRAIN_BATCH} x S {TRAIN_SEQ}", run_a,
+                    True)
+    num_m = numbers(M100, 8, 128, 0, "m100 B 8 x S 128", run_m, False)
+    # the plain backward of one chunk at the path's shape, as SSDChunk runs
+    # it, and the kernel's forward of the same chunk
+    g = torch.Generator(device=dev).manual_seed(5)
+    ins = [t.requires_grad_() for t in ssd_inputs(
+        g, TRAIN_BATCH, scfg.n_heads, scfg.chunk, scfg.head_dim,
+        scfg.d_state)]
+    cot = (torch.randn(ins[0].shape, generator=g, device=dev),
+           torch.randn(ins[5].shape, generator=g, device=dev))
+
+    def plain_backward():
+        with torch.enable_grad():
+            y, h = ssd_chunk_step_plain(*ins)
+        return torch.autograd.grad((y, h), ins, cot)
+
+    bwd_ms = time_ms(plain_backward, 5, 1)
+    print(f"ssd plain backward at Bt {TRAIN_BATCH} H {scfg.n_heads} Q "
+          f"{scfg.chunk} P {scfg.head_dim} N {scfg.d_state}: {bwd_ms:.4f} ms "
+          f"a chunk, {per_step} a step: {per_step * bwd_ms:.3f} ms")
+    del ins, cot
+    shutil.rmtree(ckpt_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return {"train_launches": run_a["launches"]["ssd_scan"],
+            "train_step_launches": per_step,
+            "train_plain_backward_ms": bwd_ms,
+            "train_step_ms": num_a["step_ms"],
+            "m100_step_ms": num_m["step_ms"]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2366,6 +2707,11 @@ def main() -> int:
         "amm_gather": amm_gather_u32, "banked_kv_decode": banked_kv_decode,
         "ssd_scan": ssd_chunk_step, "cycle_lanes": cycle_lanes})
 
+    # ---- 12. training ------------------------------------------------
+    train_ssd = training(dev, {
+        "amm_gather": amm_gather_u32, "banked_kv_decode": banked_kv_decode,
+        "ssd_scan": ssd_chunk_step, "cycle_lanes": cycle_lanes})
+
     kernels = [{
         "name": "amm_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/amm_gather.cu",
@@ -2385,7 +2731,7 @@ def main() -> int:
         "launches": serve_launches["ssd_scan"], "max_abs_err": ssd_err,
         "ms": ssd_ms, "kernel_ms": ssd_ms, "plain_ms": ssd_plain,
         "bound_ms": ssd_bound, "bound_by": ssd_by, "library_ms": None,
-        "zamba2_prefill": zamba2_ssd},
+        "zamba2_prefill": zamba2_ssd, **train_ssd},
         schedule_kernel]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {

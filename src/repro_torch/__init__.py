@@ -28,6 +28,14 @@ schedules every design lane of a grid in one launch of the hand-written
 lane-loop kernel (``kernels.cycle_lanes``, one CTA a lane); the sweep
 costs the schedules and reduces them to Pareto fronts (``core.dse``).
 
+And it trains (``launch.train``): the train step (``launch.steps``:
+loss, autograd, AdamW from ``optim``, with microbatch accumulation),
+the synthetic corpus (``data``), checkpoints in the JAX package's
+on-disk layout (``checkpoint``) and the fault-tolerance runtime
+(``runtime``).  The SSD chunk kernel's forward runs in the train step
+and its backward is the plain version's, under autograd
+(``kernels.ssd_scan.SSDChunk``).
+
 Entry points run on the CUDA device unless the caller passes
 ``device="cpu"``; a kernel wrapper given a CPU tensor takes the
 kernel's plain PyTorch version, and given a CUDA tensor launches the

@@ -18,6 +18,14 @@ computes C B^T once a batch row into an f32 workspace of
 ``workspace_shape`` that the wrapper allocates, then y and h_out over
 square tiles of the edge the library reports (``ssd_chunk_tile``);
 ``tile_counts`` gives the CTAs of each of its three launches.
+
+``SSDChunk`` is the autograd rule, on both devices: its forward is
+``ssd_chunk_step`` (the kernel on the card, counted; the plain version
+on the CPU), and its backward re-runs ``ssd_chunk_step_plain`` on the
+saved inputs under autograd and returns the gradients of all six.  The
+backward is the plain version's, not a kernel: the JAX package has no
+backward kernel either (``jax.grad`` differentiates its plain
+``ssd_chunked``).
 """
 from __future__ import annotations
 
@@ -144,3 +152,25 @@ def ssd_chunk_step(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
 
 
 ssd_chunk_step.launches = 0
+
+
+class SSDChunk(torch.autograd.Function):
+    """``ssd_chunk_step`` with a backward: the plain version re-run on
+    the saved inputs under autograd.  The gradient of ``h_in`` carries
+    the state's gradient from chunk to chunk in ``ssd_chunked``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, cum, B, C, h_in):
+        ctx.save_for_backward(x, dt, cum, B, C, h_in)
+        return ssd_chunk_step(x, dt, cum, B, C, h_in)
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        need = ctx.needs_input_grad
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        with torch.enable_grad():
+            y, h_out = ssd_chunk_step_plain(*ins)
+        wrt = [t for t in ins if t.requires_grad]
+        grads = iter(torch.autograd.grad((y, h_out), wrt, (g_y, g_h)))
+        return tuple(next(grads) if n else None for n in need)

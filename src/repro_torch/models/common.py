@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Callable
+from typing import Any, Callable, Iterator
 
 import torch
 import torch.nn.functional as F
@@ -149,6 +149,18 @@ def tree_map(fn, tree: Params) -> Params:
     """``fn`` on every tensor of a nested dict, keys kept."""
     return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v)
             for k, v in tree.items()}
+
+
+def named_leaves(tree: Params, prefix: tuple = ()
+                 ) -> "Iterator[tuple[tuple, torch.Tensor]]":
+    """(path of dict keys, tensor) for every leaf, keys sorted at every
+    level: the leaf order of JAX's ``tree_leaves`` over a dict."""
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from named_leaves(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
 
 
 def count_params(params: Params) -> int:

@@ -3,23 +3,29 @@ dense and moe (GQA or MLA attention), ssm (Mamba2), hybrid (Mamba2 with
 a zamba2-style shared attention block), vlm (a patch-embedding prefix)
 and audio (an encoder-decoder with cross attention).
 
-Public entry points (the JAX package's, without its runtime config,
-which only carries mesh and remat hooks; MLA's absorbed decode is the
-keyword ``mla_absorb``):
+Public entry points (the JAX package's; its runtime config carries
+mesh and remat hooks, and the port takes it as the keyword ``rt`` of
+``forward`` and ``loss_fn``, where only ``rt.remat`` is read; MLA's
+absorbed decode is the keyword ``mla_absorb``):
   init_model(seed, arch, policy, device)            -> params
-  forward(params, arch, batch, policy)              -> (logits, aux)
-  loss_fn(params, arch, batch, policy)              -> (loss, metrics)
+  forward(params, arch, batch, policy, *, rt)       -> (logits, aux)
+  loss_fn(params, arch, batch, policy, *, rt)       -> (loss, metrics)
   make_cache(arch, seq_len, batch, policy, device)  -> decode cache
   prefill(params, arch, batch, cache_len, policy)   -> (logits, cache)
   decode_step(params, arch, cache, tokens, policy, *, mla_absorb)
                                                     -> (logits, cache)
 
 Layers are stacked on a leading [L, ...] axis, as in the JAX params
-pytree, and a Python loop over ``l`` indexes them.  ``decode_step``
-writes the new K/V (or latent) rows into the cache it is given, in
-place (the hybrid's shared K/V too), and returns a cache that shares
-those tensors (a functional copy would move the whole cache every
-step); clone the cache to decode twice from one state.
+pytree, and a Python loop over ``l`` indexes them.  With ``rt.remat ==
+"full"`` each layer of that loop (the decoder's, with the hybrid's
+shared block; the encoder's; the cross decoder's) runs under
+``torch.utils.checkpoint``, the counterpart of the reference's
+``jax.checkpoint``: its activations are recomputed in the backward, so
+remat changes memory, not values.  ``rt=None`` runs without remat.
+``decode_step`` writes the new K/V (or latent) rows into the cache it
+is given, in place (the hybrid's shared K/V too), and returns a cache
+that shares those tensors (a functional copy would move the whole cache
+every step); clone the cache to decode twice from one state.
 
 Kept from the reference, as it is: the hybrid's ``prefill`` skips the
 shared block (its logits are the model's without it, and ``shared_k``/
@@ -33,8 +39,9 @@ import math
 from functools import partial
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, RuntimeConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import (AttnConfig, flash_attention,
                                           gqa_apply, gqa_decode, gqa_init,
@@ -304,28 +311,42 @@ def _logits(params: Params, h: torch.Tensor, cd: torch.dtype
     return h @ w
 
 
+def _remat(rt: "RuntimeConfig | None", layer, *args):
+    """``layer(*args)``, under ``torch.utils.checkpoint`` when
+    ``rt.remat`` is "full"."""
+    if rt is not None and rt.remat == "full":
+        return checkpoint(layer, *args, use_reentrant=False)
+    return layer(*args)
+
+
 def _encoder_forward(params: Params, arch: ArchConfig,
-                     frames: torch.Tensor) -> torch.Tensor:
+                     frames: torch.Tensor,
+                     rt: "RuntimeConfig | None" = None) -> torch.Tensor:
     """The encoder over ``frames`` [B, S_enc, D] (non-causal), on the
     f32 block params cast at each product, as JAX runs it."""
     acfg = attn_config(arch, causal=False)
+
+    def one_layer(h, bp):
+        h = h + gqa_apply(bp["attn"], acfg, rms_norm(h, bp["ln"]["scale"]))
+        return h + mlp_apply(bp["mlp"], rms_norm(h, bp["ln2"]["scale"]),
+                             arch.act)
+
     h = frames
     for l in range(arch.enc_layers):
-        bp = _layer(params["enc_blocks"], l)
-        h = h + gqa_apply(bp["attn"], acfg, rms_norm(h, bp["ln"]["scale"]))
-        h = h + mlp_apply(bp["mlp"], rms_norm(h, bp["ln2"]["scale"]),
-                          arch.act)
+        h = _remat(rt, one_layer, h, _layer(params["enc_blocks"], l))
     return rms_norm(h, params["enc_norm"]["scale"])
 
 
 def forward(params: Params, arch: ArchConfig, batch: "dict[str, torch.Tensor]",
-            policy: DTypePolicy | None = None
+            policy: DTypePolicy | None = None, *,
+            rt: "RuntimeConfig | None" = None
             ) -> "tuple[torch.Tensor, torch.Tensor]":
     """Full-sequence forward.  batch: "tokens" [B, S]; vlm: + "patches"
     [B, P, vit_dim], whose projections come before the tokens (logits
     [B, P + S, V]); audio: + "frames" [B, S_enc, d_model].  Returns
     (logits, aux loss: the MoE load-balance loss summed over the layers,
-    0 for the other families)."""
+    0 for the other families).  ``rt.remat == "full"`` recomputes each
+    layer in the backward."""
     policy = policy or DTypePolicy.standard()
     cd = policy.compute
     h = embed_tokens(params, arch, batch["tokens"], cd)
@@ -335,31 +356,39 @@ def forward(params: Params, arch: ArchConfig, batch: "dict[str, torch.Tensor]",
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     if arch.is_encdec:
         # the encdec stacks run uncast, as in JAX
-        enc_out = _encoder_forward(params, arch, batch["frames"].to(cd))
+        enc_out = _encoder_forward(params, arch, batch["frames"].to(cd),
+                                   rt)
         for l in range(arch.n_layers):
-            h, _ = _cross_decoder_layer(_layer(params["blocks"], l), arch,
-                                        h, enc_out)
+            h = _remat(rt, lambda hh, bp: _cross_decoder_layer(
+                bp, arch, hh, enc_out)[0], h, _layer(params["blocks"], l))
         return _logits(params, h, cd), aux
     blocks = _cast_blocks(params["blocks"], cd)
     every, emb0 = _shared_every(arch), h
     acfg = attn_config(arch)
-    for l in range(arch.n_layers):
-        h, a = _layer_apply_full(_layer(blocks, l), arch, h)
-        aux = aux + a
+
+    def one_layer(hh, bp, l):
+        hh, a = _layer_apply_full(bp, arch, hh)
         if every and l % every == 0:
-            h = _shared_block_apply(params["shared"], arch, h, emb0,
-                                    lambda ap, x: gqa_apply(ap, acfg, x))
+            hh = _shared_block_apply(params["shared"], arch, hh, emb0,
+                                     lambda ap, x: gqa_apply(ap, acfg, x))
+        return hh, a
+
+    for l in range(arch.n_layers):
+        h, a = _remat(rt, one_layer, h, _layer(blocks, l), l)
+        aux = aux + a
     return _logits(params, h, cd), aux
 
 
 def loss_fn(params: Params, arch: ArchConfig,
             batch: "dict[str, torch.Tensor]",
-            policy: DTypePolicy | None = None
+            policy: DTypePolicy | None = None, *,
+            rt: "RuntimeConfig | None" = None
             ) -> "tuple[torch.Tensor, dict]":
     """Next-token cross entropy + z-loss + 0.01 x the MoE aux loss.
     batch: forward's, with "labels" [B, S]; labels < 0 are masked.  The
-    vlm's logits are cut to the labels' length (the token positions)."""
-    logits, aux = forward(params, arch, batch, policy)
+    vlm's logits are cut to the labels' length (the token positions).
+    ``rt`` is forward's."""
+    logits, aux = forward(params, arch, batch, policy, rt=rt)
     labels = batch["labels"].long()
     if arch.family == "vlm":
         logits = logits[:, -labels.shape[1]:, :]

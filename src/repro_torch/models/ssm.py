@@ -7,7 +7,9 @@ linear state recurrence, carried by a Python loop over the chunks.
 Each chunk goes through ``kernels.ops.ssd_chunk``: its contract is the
 JAX ``ssd_chunked`` chunk step's, with the axes transposed to
 [b, h, q, p] and the cumulative log-decay precomputed, so on the card
-every chunk of every layer runs ``csrc/ssd_scan.cu``.  The per-token
+every chunk of every layer runs ``csrc/ssd_scan.cu``.  The chunk is
+differentiable in all six inputs (``kernels.ssd_scan.SSDChunk``), so
+the state carries the gradient from chunk to chunk.  The per-token
 recurrence ``ssd_reference`` is the oracle.
 
 Shapes: x [B,S,H,P] (H heads of headdim P), dt [B,S,H], B/C [B,S,N]

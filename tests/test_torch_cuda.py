@@ -359,6 +359,104 @@ def test_ssd_tile_matches_kernel(cuda):
     assert ssd_mod.kernel_tile() == 64
 
 
+@pytest.mark.parametrize("bt,h,q,p,n", [
+    (8, 24, 256, 64, 128),          # mamba2-130m's chunk
+    (8, 80, 256, 64, 64),           # zamba2-2.7b's chunk
+    (2, 3, 12, 8, 6)])
+def test_ssd_chunk_grads_on_card_match_plain(cuda, bt, h, q, p, n):
+    """Through ``ssd_chunk`` (``SSDChunk``: the kernel's forward, the
+    plain version's backward) the gradients of all six inputs equal the
+    plain version's autograd on the same inputs; the backward launches
+    no kernel.  Both backwards run the same plain arithmetic on the same
+    inputs: 1e-5 of each gradient's scale covers the device's sum
+    order."""
+    g = _gen(bt * 7 + h + n)
+    ins = [t.requires_grad_() for t in _ssd_inputs(g, cuda, bt, h, q, p, n)]
+    wy = torch.randn((bt, h, q, p), generator=g, device=cuda)
+    wh = torch.randn((bt, h, p, n), generator=g, device=cuda)
+    before = ssd_chunk_step.launches
+    y, h_out = ssd_chunk(*ins)
+    assert type(y.grad_fn).__name__ == "SSDChunkBackward"
+    got = torch.autograd.grad((y * wy).sum() + (h_out * wh).sum(), ins)
+    torch.cuda.synchronize()
+    assert ssd_chunk_step.launches == before + 1
+    yp, hp = ssd_chunk_step_plain(*ins)
+    want = torch.autograd.grad((yp * wy).sum() + (hp * wh).sum(), ins)
+    for name, a, b in zip(("x", "dt", "cum", "B", "C", "h_in"), got, want):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * b.abs().max().item(),
+                                   msg=name)
+
+
+def test_mamba2_train_step_grads_on_card_match_cpu(cuda):
+    """A tiny mamba2's gradients under an f32 policy on the card (the
+    kernel's forward) against the CPU (the plain version): every leaf
+    finite, nonzero and within 1e-4 relative L2 (the chunk gate's 1e-4
+    over two layers)."""
+    from repro_torch.configs import get_arch, tiny_variant
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import DTypePolicy, init_model
+    from repro_torch.models.common import tree_map
+    arch = tiny_variant(get_arch("mamba2-130m"))
+    f32 = DTypePolicy(torch.float32, torch.float32, torch.float32)
+    params = init_model(0, arch, f32, device=cuda)
+    toks = torch.randint(0, arch.vocab, (2, 40), generator=_gen(3),
+                         device=cuda, dtype=torch.int32)
+    batch = {"tokens": toks, "labels": toks.roll(-1, 1)}
+    before = ssd_chunk_step.launches
+    loss, _, grads = loss_and_grads(params, arch, batch,
+                                    RuntimeConfig(remat="none"), f32)
+    assert ssd_chunk_step.launches == before + arch.n_layers * 3
+    closs, _, cgrads = loss_and_grads(
+        tree_map(lambda t: t.cpu(), params), arch,
+        {k: v.cpu() for k, v in batch.items()}, RuntimeConfig(remat="none"),
+        f32)
+    torch.testing.assert_close(loss.cpu(), closs, rtol=1e-5, atol=0)
+
+    def walk(a, b, path=""):
+        for k in a:
+            if isinstance(a[k], dict):
+                walk(a[k], b[k], f"{path}{k}/")
+                continue
+            got, want = a[k].cpu(), b[k]
+            assert bool(torch.isfinite(got).all()), path + k
+            assert float(got.abs().max()) > 0, path + k
+            rel = float((got - want).norm() / want.norm())
+            assert rel <= 1e-4, (path + k, rel)
+
+    walk(grads, cgrads)
+
+
+def test_no_backward_guards_on_card(cuda):
+    """The gather and the decode have no backward: an input that
+    requires grad raises under grad mode, and under no_grad they run as
+    before."""
+    g = _gen(12)
+    table = torch.randn((96, 8), generator=g, device=cuda,
+                        requires_grad=True)
+    idx = torch.randint(0, 96, (40,), generator=g, device=cuda,
+                        dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="amm_gather has no backward"):
+        amm_gather(table, idx, n_banks=3)
+    with torch.no_grad():
+        assert torch.equal(amm_gather(table, idx, n_banks=3),
+                           table[idx.long()])
+    q = torch.randn((2, 4, 16), generator=g, device=cuda,
+                    requires_grad=True)
+    k = torch.randn((2, 2, 64, 16), generator=g, device=cuda)
+    v = torch.randn((2, 2, 64, 16), generator=g, device=cuda)
+    lengths = torch.tensor([10, 64], dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="kv_decode has no backward"):
+        kv_decode(q, k, v, lengths, n_banks=4)
+    with torch.no_grad():
+        got = kv_decode(q, k, v, lengths, n_banks=4)
+        want = banked_kv_decode_plain(q, k.reshape(2, 2, 4, 16, 16),
+                                      v.reshape(2, 2, 4, 16, 16), lengths)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
 # ---------------------------------------------------- replay and faults
 # every design kind, a sub-banked geometry among them
 REPLAY_SPECS = [
