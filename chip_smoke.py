@@ -209,6 +209,24 @@ fails:
    and device ms in the step; (a)'s step split by ``torch.profiler``
    into forward, backward and AdamW; the plain backward of one chunk at
    (a)'s shape.
+13. the surrogate-pruned sweep, every kernel's launch count set to 0
+   before (a) and read after it: (a) ``run_sweep_bench(name, full=True,
+   prune="surrogate")`` for the 15 benchmarks over a fresh cache under
+   ``build/``, exactly 15 ``cycle_lanes`` launches (the 12 calibrated
+   benchmarks' bands, the 3 serving benchmarks' exhaustive fallbacks),
+   each band the port's ``select_band`` of the grid, every point equal
+   to its golden row, the time/area front that of the 80 golden points;
+   per benchmark the band size, the launch's kernel ms against phase 8's
+   80-lane launch, its slowest lane (profiling instantiation) and the
+   time/power front's equality (information only), and the cold pass's
+   host seconds against phase 9's; (b) ``check=True`` on one pruned
+   benchmark, 0 legality violations; (c) ``python -m
+   repro_torch.core.dse.runner --bench md_knn --full --front-only``
+   with and without ``--prune surrogate`` in subprocesses, each with a
+   fresh ``--cache-dir`` and one shared, fresh ``REPRO_CACHE_DIR``: the
+   same CSV rows, the second run reading its trace from the file the
+   first wrote.  (The whole smoke keeps its traces under
+   ``build/trace_cache``.)
 
 Every time is a median of device time between CUDA events (see
 ``time_ms``).  It then prints the ``kernels`` JSON line (kernel, plain,
@@ -285,6 +303,8 @@ CHECK_BENCH = "sort_merge"    # the largest full trace: its logs checked
 # phase 9: the benchmarks audited with event logs, and the CLI's
 AUDIT_BENCHES = ("bfs_queue", "paged_kv")
 CLI_BENCH = "md_knn"
+# phase 13: the surrogate-pruned sweep; the benchmark its audit re-runs
+PRUNE_AUDIT_BENCH = "spmv_crs"
 PHASES = ("retire", "rank", "FU issue + candidates", "deferral scan",
           "clock")              # cycle_lanes' profiled phases
 # phase 10: the attention families, each at full width
@@ -456,6 +476,20 @@ def device_counts(fn) -> "tuple[int, int, float]":
     total = sum(ms for _, ms in events.values())
     check(total > 0, "the profiler recorded no device time")
     return sum(n for n, _ in events.values()), len(events), total
+
+
+def event_timed(fn, spans: list):
+    """``fn`` with each call fenced by a pair of CUDA events, appended to
+    ``spans`` (read them after a ``synchronize``)."""
+    def timed(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*args, **kwargs)
+        end.record()
+        spans.append((start, end))
+        return out
+    return timed
 
 
 def wall_ms(fn, reps: int = 3):
@@ -826,15 +860,7 @@ def timing_backend(dev: torch.device) -> dict:
     # the kernel's device time: CUDA events around the wrapper's call
     spans = []
     wrapper = ops.cycle_lanes
-
-    def timed_cycle_lanes(*args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = wrapper(*args, **kwargs)
-        end.record()
-        spans.append((start, end))
-        return out
+    timed_cycle_lanes = event_timed(wrapper, spans)
 
     results, wall = {}, {}
     torch.cuda.synchronize()
@@ -975,7 +1001,7 @@ def timing_backend(dev: torch.device) -> dict:
                         "lax.while_loop, not a Pallas kernel)",
             "launches": path_launches, "max_abs_err": float(err),
             "ms": total_ms, "kernel_ms": total_ms, "plain_ms": plain_ms,
-            "plain_inputs_ms": card_ms,
+            "plain_inputs_ms": card_ms, "launch_ms": kernel_ms,
             "bound_ms": b_ms, "bound_by": b_by, "serial_floor_ms": floor_ms,
             "library_ms": None}
 
@@ -1211,6 +1237,197 @@ def runner_and_fig5(dev: torch.device) -> dict:
     return {"runner_launches": launches,
             "runner_cold_s": sum(cold_s.values()),
             "runner_warm_s": sum(warm_s.values())}
+
+
+def pruned_sweep(dev: torch.device, kernels: dict,
+                 exhaustive_ms: "dict[str, float]", exhaustive_cold_s: float,
+                 full: bool = True) -> dict:
+    """Phase 13: the surrogate-pruned sweep.  (a) the cold pass,
+    ``run_sweep_bench(name, full=True, prune="surrogate")`` for the 15
+    benchmarks over a fresh cache, one ``cycle_lanes`` launch a benchmark
+    (12 bands, 3 exhaustive fallbacks), every point equal to its golden
+    row, each band the port's ``select_band`` of the grid, the time/area
+    front that of the 80 golden points; each band launch's kernel ms
+    against phase 8's exhaustive launch, its slowest lane; (b) the audit
+    of one pruned benchmark; (c) the CLI's ``--front-only`` rows with and
+    without ``--prune surrogate``, the second run reading its trace from
+    the on-disk cache.  Every kernel's launch count is set to 0 before
+    (a) and read after it: ``cycle_lanes`` must launch once a benchmark,
+    every other kernel never.  Returns the ``pruned`` record of the
+    ``cycle_lanes`` entry.  ``full=False`` runs the TINY traces (a
+    rehearsal on the CPU)."""
+    import os
+    import shutil
+
+    import repro_torch.core.bench as bench_mod
+    from repro_torch.core.bench import BENCHMARKS, get_trace
+    from repro_torch.core.dse import (grid_predictions, pareto_front,
+                                      run_sweep_bench, select_band)
+    from repro_torch.core.dse.runner import SweepCache
+    from repro_torch.core.dse.surrogate import CALIBRATED_BENCHES
+    from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
+                                            schedule_config_for)
+    from repro_torch.core.sim import prepare_trace
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    golden = json.loads(GOLDEN_SCHEDULE_FULL.read_text())
+    root = REPO / "build" / "dse_pruned"
+    shutil.rmtree(root, ignore_errors=True)
+    grid = [(dp, u) for dp in DEFAULT_DESIGNS for u in DEFAULT_UNROLLS]
+    pts = {b: prepare_trace(get_trace(b, full=full)) for b in BENCHMARKS}
+    want = {b: golden_points(pts[b], golden) for b in BENCHMARKS}
+    band = {}
+    for b in BENCHMARKS:
+        t0 = time.perf_counter()
+        keep = select_band(grid_predictions(pts[b], DEFAULT_DESIGNS,
+                                            DEFAULT_UNROLLS))
+        rank_ms = (time.perf_counter() - t0) * 1e3
+        band[b] = ([i for i, k in enumerate(keep) if k]
+                   if b in CALIBRATED_BENCHES else list(range(len(grid))))
+        print(f"pruned (a) {b}: surrogate band {sum(keep)} of {len(grid)} "
+              f"({rank_ms:.1f} ms host clock to rank the grid)"
+              + ("" if b in CALIBRATED_BENCHES else
+                 "; not calibrated: the runner runs all 80"))
+
+    # (a) the cold pruned pass, each launch fenced by CUDA events
+    spans = []
+    wrapper = ops.cycle_lanes
+    cache = SweepCache(root / "cache")
+    got, cold_s = {}, {}
+    torch.cuda.synchronize()
+    zero_counts(kernels)
+    ops.cycle_lanes = event_timed(wrapper, spans)
+    try:
+        for b in BENCHMARKS:
+            t0 = time.perf_counter()
+            got[b] = run_sweep_bench(b, full=full, prune="surrogate",
+                                     cache=cache, device=dev)
+            cold_s[b] = time.perf_counter() - t0
+    finally:
+        ops.cycle_lanes = wrapper
+    torch.cuda.synchronize()
+    launches = hold_counts(kernels, "pruned (a)",
+                           {"cycle_lanes": len(BENCHMARKS)})["cycle_lanes"]
+    check(len(spans) == launches, f"{len(spans)} timed launches")
+    n_band = sum(len(i) for i in band.values())
+    check((cache.hits, cache.misses) == (0, n_band),
+          f"pruned pass: {cache.hits} hits, {cache.misses} misses for "
+          f"{n_band} band points")
+    kernel_ms, fronts = {}, {}
+    for (b, pts_b), (start, end) in zip(got.items(), spans):
+        expect = [want[b][i] for i in band[b]]
+        check([(p.design, p.unroll) for p in pts_b]
+              == [(grid[i][0].label, grid[i][1]) for i in band[b]],
+              f"{b}: the pruned sweep's points are not its band")
+        check(same_points(pts_b, expect),
+              f"{b}: a pruned point differs from its golden row")
+        for cost, key in (("area", lambda p: p.area_mm2),
+                          ("power", lambda p: p.power_mw)):
+            fronts[b, cost] = ([(p.design, p.unroll)
+                                for p in pareto_front(pts_b, key)]
+                               == [(p.design, p.unroll)
+                                   for p in pareto_front(want[b], key)])
+        check(fronts[b, "area"],
+              f"{b}: the pruned time/area front != the golden rows' front")
+        kernel_ms[b] = start.elapsed_time(end)
+    # where each band launch's slowest lane spends its clocks: the
+    # profiling instantiation, launched after the counts were read
+    for b in BENCHMARKS:
+        line = (f"pruned (a) {b}: {len(got[b])} points, kernel "
+                f"{kernel_ms[b]:.3f} ms (phase 8's 80-lane launch "
+                f"{exhaustive_ms[b]:.3f} ms, "
+                f"{exhaustive_ms[b] / kernel_ms[b]:.2f}x), most cycles a "
+                f"lane simulated {max(p.cycles for p in got[b])}, "
+                f"run_sweep_bench {cold_s[b] * 1e3:.1f} ms (host clock); "
+                f"time/area front equal to the 80 golden points'; "
+                "time/power front "
+                f"{'equal' if fronts[b, 'power'] else 'differs'} "
+                "(information only)")
+        if b in CALIBRATED_BENCHES:
+            cfgs = [schedule_config_for(pts[b], *grid[i]) for i in band[b]]
+            split = lane_profile(pts[b], cfgs, dev)
+            dp, u = grid[band[b][split["lane"]]]
+            line += (f"; slowest lane {dp.label} u{u}, {split['cycles']} "
+                     f"cycles, deferral scan {split['shares'][3]:.1%} of "
+                     "its SM clocks")
+        print(line)
+    pruned_ms = sum(kernel_ms.values())
+    n_cal = sum(b in CALIBRATED_BENCHES for b in BENCHMARKS)
+    print(f"pruned (a): {launches} launches of cycle_lanes ({n_cal} bands, "
+          f"{len(BENCHMARKS) - n_cal} exhaustive fallbacks), {n_band} "
+          "points each equal to its golden row; "
+          f"kernel {pruned_ms:.3f} ms in all against phase 8's "
+          f"{sum(exhaustive_ms.values()):.3f} ms; cold pass "
+          f"{sum(cold_s.values()):.3f} s (host clock) against phase 9's "
+          f"exhaustive {exhaustive_cold_s:.3f} s; time/power fronts equal "
+          f"on {sum(fronts[b, 'power'] for b in BENCHMARKS)} of "
+          f"{len(BENCHMARKS)}")
+
+    # (b) the audit of one pruned benchmark, served from (a)'s cache
+    cache = SweepCache(root / "cache")
+    t0 = time.perf_counter()
+    audited = run_sweep_bench(PRUNE_AUDIT_BENCH, full=full, prune="surrogate",
+                              cache=cache, check=True, device=dev)
+    check(audited == got[PRUNE_AUDIT_BENCH]
+          and cache.hits == len(audited) and cache.misses == 0,
+          f"{PRUNE_AUDIT_BENCH}: the audited pruned sweep changed")
+    print(f"pruned (b) {PRUNE_AUDIT_BENCH}: run_sweep_bench(prune="
+          f"'surrogate', check=True): {len(audited)} event logs legal, 0 "
+          f"violations ({time.perf_counter() - t0:.2f} s host clock)")
+
+    # (c) the CLI, with and without pruning, sharing one trace cache
+    old_dir = os.environ.get("REPRO_CACHE_DIR")
+    os.environ["REPRO_CACHE_DIR"] = str(root / "repro_cache")
+    trace_file = bench_mod._disk_cache_path(
+        CLI_BENCH, BENCHMARKS[CLI_BENCH].Params() if full
+        else BENCHMARKS[CLI_BENCH].TINY)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(REPO / "src")] + ([os.environ["PYTHONPATH"]]
+                               if os.environ.get("PYTHONPATH") else [])))
+    rows, stamp = {}, {}
+    for what, extra in (("exhaustive", []),
+                        ("pruned", ["--prune", "surrogate"])):
+        stamp[what] = (trace_file.stat().st_ino, trace_file.stat().st_mtime_ns
+                       ) if trace_file.is_file() else None
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.core.dse.runner", "--bench",
+             CLI_BENCH, "--front-only", "--device", dev.type,
+             "--cache-dir", str(root / f"cli_{what}")]
+            + (["--full"] if full else []) + extra,
+            capture_output=True, text=True, env=env, timeout=600, cwd=REPO)
+        cli_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the {what} CLI exited "
+              f"{proc.returncode}: {proc.stderr[-2000:]}")
+        rows[what] = [ln for ln in proc.stdout.splitlines()
+                      if ln and not ln.startswith("#")]
+        print(f"pruned (c) {what} CLI --bench {CLI_BENCH} --front-only"
+              f"{' ' + ' '.join(extra) if extra else ''}: "
+              f"{len(rows[what]) - 1} front rows ({cli_s:.1f} s host clock "
+              "for the process)")
+        for ln in proc.stdout.splitlines():
+            if ln.startswith("#"):
+                print(f"pruned (c) {what} {ln}")
+    if old_dir is None:
+        del os.environ["REPRO_CACHE_DIR"]
+    else:
+        os.environ["REPRO_CACHE_DIR"] = old_dir
+    check(len(rows["pruned"]) > 1 and rows["pruned"] == rows["exhaustive"],
+          "the pruned CLI's --front-only rows != the exhaustive CLI's")
+    check(stamp["exhaustive"] is None and stamp["pruned"] is not None
+          and trace_file.is_file()
+          and (trace_file.stat().st_ino, trace_file.stat().st_mtime_ns)
+          == stamp["pruned"],
+          f"the pruned CLI did not read its trace from {trace_file}")
+    print(f"pruned (c): the two CLIs' front rows are identical; the first "
+          f"wrote the trace, the second read it from {trace_file} "
+          f"({trace_file.stat().st_size} bytes, unchanged)")
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches, "kernel_ms": kernel_ms,
+            "band": {b: len(i) for b, i in band.items()},
+            "cold_s": sum(cold_s.values())}
 
 
 def _leaves(tree: dict):
@@ -2243,6 +2460,11 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+    import os
+    import shutil
+    # the benchmarks' on-disk trace cache, fresh under build/
+    shutil.rmtree(REPO / "build" / "trace_cache", ignore_errors=True)
+    os.environ["REPRO_CACHE_DIR"] = str(REPO / "build" / "trace_cache")
     from repro_torch.configs import SHAPES, get_arch
     from repro_torch.kernels import _build, pack_amm_banks
     from repro_torch.kernels.amm_gather import (amm_gather_u32,
@@ -2711,6 +2933,12 @@ def main() -> int:
     train_ssd = training(dev, {
         "amm_gather": amm_gather_u32, "banked_kv_decode": banked_kv_decode,
         "ssd_scan": ssd_chunk_step, "cycle_lanes": cycle_lanes})
+
+    # ---- 13. the surrogate-pruned sweep ------------------------------
+    schedule_kernel["pruned"] = pruned_sweep(dev, {
+        "amm_gather": amm_gather_u32, "banked_kv_decode": banked_kv_decode,
+        "ssd_scan": ssd_chunk_step, "cycle_lanes": cycle_lanes},
+        schedule_kernel["launch_ms"], schedule_kernel["runner_cold_s"])
 
     kernels = [{
         "name": "amm_gather", "route": "cuda",

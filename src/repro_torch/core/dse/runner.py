@@ -20,14 +20,24 @@ compositions.  This module is the entry point for that loop:
   the two runners share a cache directory; the manifest's benchmark
   identities hash each package's own module source, so each package
   records its own.
+* **Surrogate pruning** — ``prune="surrogate"`` ranks the full grid on
+  the host with the analytic cycle predictor
+  (:mod:`repro_torch.core.dse.surrogate`), schedules only the predicted
+  Pareto band (plus a safety margin) in one ``cycle_lanes`` launch per
+  ``batch_lanes`` points, and returns the band's points.  Unlike the
+  reference, whose serial C loop abandons a band point once it provably
+  cannot reach the time/area front (a front cap that depends on the
+  order the points run in), the lanes of one launch run concurrently and
+  every band point is scheduled to completion: the returned list is the
+  whole band, a superset of the reference's pruned result, and its
+  time/area front is the exhaustive front.
 * **Audit** — ``check=True`` re-schedules the returned points with
   event logging, one launch per ``batch_lanes`` points, and validates
   every log with :mod:`repro_torch.core.verify`.
 
 The reference's process pool (``--jobs``, ``--chunk-timeout``,
-``--chunk-retries``), its CPU cycle-loop backends (``--backend``) and
-its surrogate pruning (``--prune``) are not here: on the card one launch
-takes ``batch_lanes`` points.
+``--chunk-retries``) and its CPU cycle-loop backends (``--backend``) are
+not here: on the card one launch takes ``batch_lanes`` points.
 
 Results are deterministic: the returned list is always ordered
 ``designs``-major / ``unrolls``-minor and each point is bitwise
@@ -39,6 +49,8 @@ CLI::
     python -m repro_torch.core.dse.runner --bench gemm_ncubed
     python -m repro_torch.core.dse.runner --bench md_knn --full \\
         --cache-dir .dse_cache --unrolls 1,2,4,8 --check
+    python -m repro_torch.core.dse.runner --bench md_knn --full \\
+        --prune surrogate --front-only
     python -m repro_torch.core.dse.runner --bench kmp --device cpu
 """
 from __future__ import annotations
@@ -265,55 +277,11 @@ def _legality_pass(pt: PreparedTrace, designs: Sequence[DesignPoint],
           f"{time.perf_counter() - t0:.3f}s (0 violations)")
 
 
-def run_sweep(
-    tr: "T.Trace | PreparedTrace",
-    designs: Sequence[DesignPoint] = DEFAULT_DESIGNS,
-    unrolls: Iterable[int] = DEFAULT_UNROLLS,
-    *,
-    mem_latency: int = 2,
-    cache_dir: "str | Path | None" = None,
-    cache: "SweepCache | None" = None,
-    faults=None,
-    check: bool = False,
-    verbose: bool = False,
-    device=None,
-    batch_lanes: int = 256,
-) -> list[DSEPoint]:
-    """Evaluate every ``(design, unroll)`` composition on one trace.
-
-    Args:
-      tr: trace (raw or prepared) to sweep.
-      designs / unrolls: the composition grid; results are returned in
-        ``designs``-major, ``unrolls``-minor order.
-      mem_latency: load issue-to-data latency forwarded to the scheduler.
-      cache_dir: directory for the on-disk result cache (defaults to the
-        ``REPRO_DSE_CACHE`` env var; no caching when unset).
-      cache: pre-constructed :class:`SweepCache` (overrides cache_dir).
-      faults: a :class:`repro_torch.core.fault.FaultConfig` (or fault
-        count int) to run a seeded fault campaign per distinct design on
-        ``device`` and fill each point's ``res_*`` fields.  Campaigns
-        run at a canonical 256x32b geometry and are attached *after*
-        cache load/store, so cache entries stay fault-agnostic.
-      check: run the independent legality checker
-        (``repro_torch.core.verify``) over every returned point after
-        the sweep: the points are re-scheduled with issue-event logging,
-        validated against rules compiled from their AMMSpecs and their
-        static lower bounds, and held to the sweep's own cycle counts
-        (catching stale cache entries too).  Raises
-        ``repro_torch.core.verify.LegalityError`` on any violation.
-      verbose: progress lines on stderr (cache hits, launch wall-clock).
-      device: ``None`` runs the ``cycle_lanes`` kernel on the CUDA device
-        (and raises without one); ``"cpu"`` runs its plain version.
-      batch_lanes: points per ``cycle_lanes`` launch (bounds one
-        launch's device memory).
-    """
-    dev = resolve_device(device)
-    unrolls = tuple(unrolls)
-    pt = prepare_trace(tr)
-    if cache is None:
-        cache = _resolve_cache(cache_dir)
-
-    grid = [(dp, u) for dp in designs for u in unrolls]
+def _evaluate(pt: PreparedTrace, grid: "list[tuple[DesignPoint, int]]",
+              mem_latency: int, cache: "SweepCache | None", verbose: bool,
+              dev, batch_lanes: int) -> list[DSEPoint]:
+    """The points of ``grid``, in its order: cache hits as they are, the
+    misses scheduled by :func:`evaluate_batched` and stored."""
     keys = [point_key(pt.fingerprint, dp, u, mem_latency) if cache else None
             for dp, u in grid]
     results: "list[DSEPoint | None]" = [cache.get(k) if cache else None
@@ -335,7 +303,134 @@ def run_sweep(
               f"{pt.trace.name}: {len(todo)} points in "
               f"{-(-len(todo) // batch_lanes)} launches, "
               f"{time.perf_counter() - t0:.3f}s")
+    return results
 
+
+def _run_pruned(pt: PreparedTrace, designs: Sequence[DesignPoint],
+                unrolls: "tuple[int, ...]", mem_latency: int,
+                cache: "SweepCache | None", margin: "float | None",
+                verbose: bool, dev, batch_lanes: int) -> list[DSEPoint]:
+    """Surrogate-pruned sweep: rank the grid on the host, keep the
+    predicted Pareto band and evaluate it as :func:`_evaluate` does (cache
+    hits served, the misses in one launch per ``batch_lanes`` points).
+    Returns the band's points, a designs-major subsequence of the grid;
+    every band point runs to completion (no front cap)."""
+    from repro_torch.core.dse.surrogate import (DEFAULT_MARGIN,
+                                                grid_predictions,
+                                                select_band)
+
+    if margin is None:
+        margin = DEFAULT_MARGIN
+    t0 = time.perf_counter()
+    preds = grid_predictions(pt, designs, unrolls)
+    keep = select_band(preds, margin)
+    _vlog(verbose,
+          f"{pt.trace.name}: surrogate ranked {len(preds)} points in "
+          f"{time.perf_counter() - t0:.3f}s; band kept {sum(keep)} "
+          f"(margin {margin:g})")
+    band = [(p.design, p.unroll) for p, k in zip(preds, keep) if k]
+    return _evaluate(pt, band, mem_latency, cache, verbose, dev,
+                     batch_lanes)
+
+
+def _prune_falls_back(pt: PreparedTrace, mem_latency: int,
+                      verbose: bool) -> bool:
+    """True where the surrogate is not calibrated, so a pruned sweep runs
+    the exhaustive grid instead (saying why on stderr)."""
+    from repro_torch.core.dse.surrogate import (CALIBRATED_BENCHES,
+                                                CALIBRATED_MEM_LATENCY)
+
+    if mem_latency != CALIBRATED_MEM_LATENCY:
+        _vlog(verbose,
+              f"{pt.trace.name}: surrogate calibrated at mem_latency="
+              f"{CALIBRATED_MEM_LATENCY}, got {mem_latency}: "
+              "running exhaustive")
+        return True
+    if pt.trace.name not in CALIBRATED_BENCHES:
+        # uncalibrated trace family (the serving benches): exactness
+        # over speed — run the full grid
+        _vlog(verbose,
+              f"{pt.trace.name}: trace family not in the surrogate "
+              "calibration set: running exhaustive")
+        return True
+    return False
+
+
+def run_sweep(
+    tr: "T.Trace | PreparedTrace",
+    designs: Sequence[DesignPoint] = DEFAULT_DESIGNS,
+    unrolls: Iterable[int] = DEFAULT_UNROLLS,
+    *,
+    mem_latency: int = 2,
+    cache_dir: "str | Path | None" = None,
+    cache: "SweepCache | None" = None,
+    prune: "str | None" = None,
+    margin: "float | None" = None,
+    faults=None,
+    check: bool = False,
+    verbose: bool = False,
+    device=None,
+    batch_lanes: int = 256,
+) -> list[DSEPoint]:
+    """Evaluate every ``(design, unroll)`` composition on one trace.
+
+    Args:
+      tr: trace (raw or prepared) to sweep.
+      designs / unrolls: the composition grid; results are returned in
+        ``designs``-major, ``unrolls``-minor order.
+      mem_latency: load issue-to-data latency forwarded to the scheduler.
+      cache_dir: directory for the on-disk result cache (defaults to the
+        ``REPRO_DSE_CACHE`` env var; no caching when unset).
+      cache: pre-constructed :class:`SweepCache` (overrides cache_dir).
+      prune: ``"surrogate"`` ranks the grid with the analytic cycle
+        predictor on the host and schedules only the predicted Pareto
+        band (:func:`repro_torch.core.dse.surrogate.select_band`), one
+        ``cycle_lanes`` launch per ``batch_lanes`` points.  Returns the
+        band, a designs-major *subsequence* of the grid whose time/area
+        Pareto front is the exhaustive one; each point is bitwise
+        identical to the exhaustive sweep's (and shares its cache
+        entries).  Every band point is scheduled to completion (the
+        reference's serial front cap is not applied), so the band is a
+        superset of what the reference's pruned sweep returns.  The
+        surrogate is calibrated at ``mem_latency == 2`` on the MachSuite
+        trace families (``surrogate.CALIBRATED_BENCHES``); other
+        latencies and the serving benches run the exhaustive grid.
+      margin: safety slack on predicted time for the surrogate band
+        (default :data:`repro_torch.core.dse.surrogate.DEFAULT_MARGIN`).
+      faults: a :class:`repro_torch.core.fault.FaultConfig` (or fault
+        count int) to run a seeded fault campaign per distinct design on
+        ``device`` and fill each point's ``res_*`` fields.  Campaigns
+        run at a canonical 256x32b geometry and are attached *after*
+        cache load/store, so cache entries stay fault-agnostic.
+      check: run the independent legality checker
+        (``repro_torch.core.verify``) over every returned point after
+        the sweep: the points are re-scheduled with issue-event logging,
+        validated against rules compiled from their AMMSpecs and their
+        static lower bounds, and held to the sweep's own cycle counts
+        (catching stale cache entries too).  Raises
+        ``repro_torch.core.verify.LegalityError`` on any violation.
+      verbose: progress lines on stderr (cache hits, launch wall-clock,
+        the surrogate's band or why it fell back).
+      device: ``None`` runs the ``cycle_lanes`` kernel on the CUDA device
+        (and raises without one); ``"cpu"`` runs its plain version.
+      batch_lanes: points per ``cycle_lanes`` launch (bounds one
+        launch's device memory).
+    """
+    if prune not in (None, "surrogate"):
+        raise ValueError(f"prune must be None or 'surrogate', got {prune!r}")
+    dev = resolve_device(device)
+    unrolls = tuple(unrolls)
+    pt = prepare_trace(tr)
+    if cache is None:
+        cache = _resolve_cache(cache_dir)
+
+    if prune == "surrogate" and not _prune_falls_back(pt, mem_latency,
+                                                      verbose):
+        results = _run_pruned(pt, designs, unrolls, mem_latency, cache,
+                              margin, verbose, dev, batch_lanes)
+    else:
+        results = _evaluate(pt, [(dp, u) for dp in designs for u in unrolls],
+                            mem_latency, cache, verbose, dev, batch_lanes)
     if check:
         _legality_pass(pt, designs, mem_latency, results, verbose, dev,
                        batch_lanes)
@@ -352,6 +447,8 @@ def run_sweep_bench(
     mem_latency: int = 2,
     cache_dir: "str | Path | None" = None,
     cache: "SweepCache | None" = None,
+    prune: "str | None" = None,
+    margin: "float | None" = None,
     faults=None,
     check: bool = False,
     verbose: bool = False,
@@ -369,8 +466,11 @@ def run_sweep_bench(
     Any miss falls through to :func:`run_sweep` on the real trace, which
     then records the manifest entry for next time.
 
-    ``stats`` (optional dict) gets ``fast_path`` (bool) and, when the
-    trace was prepared, ``prepared`` (the :class:`PreparedTrace`).
+    The fast path always returns the *full* grid — with every point
+    cached, pruning would save nothing.  Otherwise ``prune`` and
+    ``margin`` are :func:`run_sweep`'s.  ``stats`` (optional dict) gets
+    ``fast_path`` (bool) and, when the trace was prepared, ``prepared``
+    (the :class:`PreparedTrace`).
     ``device`` is :func:`run_sweep`'s: the CUDA device unless ``"cpu"``
     is asked for, also on the fast path.
     """
@@ -410,8 +510,9 @@ def run_sweep_bench(
         stats["fast_path"] = False
         stats["prepared"] = pt
     res = run_sweep(pt, designs, unrolls, mem_latency=mem_latency,
-                    cache=cache, faults=faults, check=check,
-                    verbose=verbose, device=dev, batch_lanes=batch_lanes)
+                    cache=cache, prune=prune, margin=margin, faults=faults,
+                    check=check, verbose=verbose, device=dev,
+                    batch_lanes=batch_lanes)
     if cache is not None:
         cache.manifest_put(bkey, pt.fingerprint)
     return res
@@ -445,6 +546,13 @@ def main(argv: "Sequence[str] | None" = None) -> None:
     ap.add_argument("--mem-latency", type=int, default=2)
     ap.add_argument("--cache-dir", default=None,
                     help=f"on-disk result cache (or ${_ENV_CACHE_DIR})")
+    ap.add_argument("--prune", choices=("surrogate",), default=None,
+                    help="surrogate-pruned sweep: schedule only the "
+                         "predicted Pareto band (subset output; exact "
+                         "time/area front preserved)")
+    ap.add_argument("--margin", type=float, default=None,
+                    help="surrogate band safety margin on predicted time "
+                         "(default: surrogate.DEFAULT_MARGIN)")
     ap.add_argument("--faults", type=int, default=0, metavar="N",
                     help="inject an N-fault seeded campaign per design "
                          "and emit the res_* resilience columns (0 = off)")
@@ -458,7 +566,9 @@ def main(argv: "Sequence[str] | None" = None) -> None:
                          "event-log invariants + static hazard lower "
                          "bounds; exits nonzero on any violation")
     ap.add_argument("--front-only", action="store_true",
-                    help="emit only Pareto-front rows (grid order kept)")
+                    help="emit only Pareto-front rows (grid order kept); "
+                         "pruned and exhaustive sweeps agree on this "
+                         "output, so it diffs clean")
     ap.add_argument("--verbose", action="store_true",
                     help="progress lines on stderr")
     ap.add_argument("--device", default=None,
@@ -479,7 +589,8 @@ def main(argv: "Sequence[str] | None" = None) -> None:
     t0 = time.perf_counter()
     pts = run_sweep_bench(args.bench, DEFAULT_DESIGNS, args.unrolls,
                           full=args.full, mem_latency=args.mem_latency,
-                          cache=cache, faults=faults, check=args.check,
+                          cache=cache, prune=args.prune, margin=args.margin,
+                          faults=faults, check=args.check,
                           verbose=args.verbose, stats=stats, device=dev)
     t_sweep = time.perf_counter() - t0
 
@@ -502,7 +613,8 @@ def main(argv: "Sequence[str] | None" = None) -> None:
     trace_info = (f"nodes={pt.n_nodes} locality={pt.locality:.3f}"
                   if pt is not None else "trace=cached-manifest")
     print(f"# {trace_info} points={len(pts)} "
-          f"sweep={t_sweep*1e3:.1f}ms device={dev}")
+          f"sweep={t_sweep*1e3:.1f}ms device={dev}"
+          + (f" prune={args.prune}" if args.prune else ""))
     if banking and amm:
         print(f"# expansion={design_space_expansion(banking, amm):.2f} "
               f"pareto_banked={len(pareto_front(banking))} "

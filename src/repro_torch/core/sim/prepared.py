@@ -22,12 +22,13 @@ A ``PreparedTrace`` is an immutable companion of one :class:`Trace`:
 * ``fingerprint``: a content hash of the trace;
 * contiguous numpy per-node arrays (``is_load_np``, ``latency_np``,
   ``word_index_np``, ``klass_np``) and the padded fixed-shape tensors
-  of the batched timing backend (:meth:`PreparedTrace.device_views`).
+  of the batched timing backend (:meth:`PreparedTrace.device_views`);
+* the design-independent memory statistics of the sweep surrogate
+  (:meth:`PreparedTrace.mem_profile`).
 
 ``prepare_trace(tr)`` memoizes the analysis on the trace object itself,
 so repeated calls share one analysis.  The reference's plain-Python
-mirrors and memory profile (its pure-Python loop and its surrogate) are
-not copied yet.
+mirrors (its pure-Python loop) are not copied.
 """
 from __future__ import annotations
 
@@ -265,6 +266,67 @@ def _build_device_views(pt: "PreparedTrace") -> DeviceViews:
         seg_start=seg_start, class_bounds=bounds)
 
 
+@dataclasses.dataclass(frozen=True)
+class MemProfile:
+    """Design-independent memory-behavior statistics of one trace.
+
+    Consumed by the analytic sweep surrogate
+    (:mod:`repro_torch.core.dse.surrogate`): everything here depends only
+    on the trace, so one profile serves every design point of a sweep.
+
+    * ``crit_height`` — latency-weighted critical-path height (the
+      schedule lower bound for unlimited resources);
+    * ``fu_ops`` — op count per ``FU_ORDER`` class;
+    * ``load_words``/``store_words`` — per-array word-index streams in
+      program order (bank/leaf conflict histograms are cheap bincounts
+      over these);
+    * ``load_bands``/``store_bands`` — per-array access counts per
+      ``band_w``-tall height band (a proxy for how many accesses
+      compete for ports in the same schedule region);
+    * ``cold_loads`` — per-array loads that precede the word's first
+      store (remap steering can never have re-pointed those words).
+    """
+    crit_height: int
+    fu_ops: np.ndarray
+    band_w: int
+    n_bands: int
+    load_words: dict[int, np.ndarray]
+    store_words: dict[int, np.ndarray]
+    load_bands: dict[int, np.ndarray]
+    store_bands: dict[int, np.ndarray]
+    cold_loads: dict[int, int]
+
+
+def _build_mem_profile(pt: "PreparedTrace", band_w: int) -> MemProfile:
+    tr = pt.trace
+    crit = int(pt.height.max()) if pt.n_nodes else 0
+    fu_ops = np.bincount(pt.klass_np, minlength=pt.n_arrays
+                         + len(FU_ORDER))[pt.n_arrays:]
+    n_bands = crit // band_w + 1
+    mem = tr.mem_mask()
+    is_load = pt.is_load_np.astype(bool)
+    lw, sw, lb, sb, cold = {}, {}, {}, {}, {}
+    for aid in tr.array_names:
+        sel = mem & (tr.array_ids == aid)
+        lm, sm = sel & is_load, sel & ~is_load
+        wl, ws = pt.word_index_np[lm], pt.word_index_np[sm]
+        lw[aid], sw[aid] = wl, ws
+        lb[aid] = np.bincount(pt.height[lm] // band_w, minlength=n_bands)
+        sb[aid] = np.bincount(pt.height[sm] // band_w, minlength=n_bands)
+        # first-store program position per word (node ids are program
+        # order); loads strictly before it are cold
+        if wl.size:
+            span = int(max(wl.max(initial=0), ws.max(initial=0))) + 1
+            first = np.full(span, np.iinfo(np.int64).max, np.int64)
+            np.minimum.at(first, ws, np.nonzero(sm)[0])
+            cold[aid] = int(np.sum(np.nonzero(lm)[0] < first[wl]))
+        else:
+            cold[aid] = 0
+    return MemProfile(crit_height=crit, fu_ops=fu_ops, band_w=band_w,
+                      n_bands=n_bands, load_words=lw, store_words=sw,
+                      load_bands=lb, store_bands=sb, cold_loads=cold)
+
+
 @dataclasses.dataclass
 class PreparedTrace:
     """One-time trace analysis shared by every design-point evaluation.
@@ -293,6 +355,8 @@ class PreparedTrace:
     klass_np: np.ndarray       # [N] int64
     _device: "DeviceViews | None" = dataclasses.field(
         default=None, repr=False, compare=False)
+    _mem_profiles: dict = dataclasses.field(
+        default_factory=dict, repr=False, compare=False)
 
     @property
     def name(self) -> str:
@@ -308,6 +372,15 @@ class PreparedTrace:
         if self._device is None:
             self._device = _build_device_views(self)
         return self._device
+
+    def mem_profile(self, band_w: int = 8) -> MemProfile:
+        """Build (once per ``band_w``) the design-independent memory
+        statistics of the sweep surrogate — see :class:`MemProfile`."""
+        prof = self._mem_profiles.get(band_w)
+        if prof is None:
+            prof = self._mem_profiles[band_w] = _build_mem_profile(
+                self, band_w)
+        return prof
 
 
 def _array_depths(tr: T.Trace, word_idx: np.ndarray) -> dict[int, int]:

@@ -842,6 +842,23 @@ def test_run_sweep_on_the_card_matches_golden_rows(cuda, bench, tmp_path):
     assert (cache.hits, cache.misses) == (len(got), 0)
 
 
+def test_pruned_sweep_on_the_card_matches_plain(cuda, tmp_path):
+    """``run_sweep(prune="surrogate")`` of a TINY benchmark schedules its
+    band in one launch on the card, equal to the plain lanes' points."""
+    from repro_torch.core.bench import get_trace
+    from repro_torch.core.dse import runner
+    from repro_torch.core.sim import prepare_trace
+    from repro_torch.kernels.cycle_lanes import cycle_lanes
+
+    pt = prepare_trace(get_trace("spmv_crs"))
+    cycle_lanes.launches = 0
+    got = runner.run_sweep(pt, prune="surrogate", cache_dir=tmp_path)
+    assert cycle_lanes.launches == 1
+    want = runner.run_sweep(pt, prune="surrogate", device="cpu")
+    assert 0 < len(got) < 80
+    assert got == want
+
+
 @pytest.mark.parametrize("bench", ["paged_kv", "kmp", "aes"])
 def test_legality_pass_on_the_card(cuda, bench, tmp_path):
     """The audit re-schedules the points on the card with event logs,
