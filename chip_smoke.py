@@ -227,6 +227,30 @@ fails:
    same CSV rows, the second run reading its trace from the file the
    first wrote.  (The whole smoke keeps its traces under
    ``build/trace_cache``.)
+14. the mesh, on a one-rank NCCL process group: (a) mamba2-130m at full
+   width (B 8 x S 1024, remat none) trained 3 steps as a sharded
+   program: params and AdamW state DTensors placed by ``param_pspecs``
+   on a (1, 1) ("data", "model") mesh, the batch by ``input_pspecs``,
+   the step under ``activation_sharding``; the SSD kernel reached through
+   DTensor and ``local_map``, exactly 24 x 4 = 96 launches a step (the
+   counts set to 0 before each step and read after it); the sharded
+   step's host-clock ms beside the plain step's; an f32 step and its
+   gradients at B 1 x S 512, sharded against plain on the card, within
+   phase 12's gates (loss and grad_norm 1e-3 relative, every gradient
+   leaf 1e-3 relative L2, at most 1e-3 of the updates flipped); (b)
+   ``pipeline_apply`` at P 1 on a "pod" mesh: 4 microbatches of B 2 x
+   S 4096 through the 24 blocks equal the model's own block loop within
+   1e-5 relative, in exactly 24 x 16 x 4 = 1536 SSD launches; (c)
+   ``compressed_pod_mean`` of (a)'s gradients on a one-rank "pod" group:
+   each tensor within half its int8 step (plus 1e-4 of a step for the
+   f32 scale), and the payload the counters read
+   at most 0.6x the bf16 all-reduce's; (d) ``python -m
+   repro_torch.launch.dryrun --arch qwen3-1.7b --shape train_4k
+   --both-meshes`` in a subprocess on the host (a fake world of 256 and
+   512 ranks): both rows ``ok``, ``state_bytes_per_device`` equal to
+   ``DRYRUN_STATE_BYTES``, the reference dry run's values, which
+   ``tests/test_torch_sharding.py`` holds these constants to; the
+   dominant term and the trace seconds printed.
 
 Every time is a median of device time between CUDA events (see
 ``time_ms``).  It then prints the ``kernels`` JSON line (kernel, plain,
@@ -343,6 +367,18 @@ GRAD_TOL = 1e-3
 # the share of updated entries that may move the other way: at step 1 an
 # update is lr * sign(g) (+ decay), which flips where g is near 0
 FLIP_SHARE = 1e-3
+# phase 14: the mesh; the sharded train step at phase 12's shape, the
+# pipeline's microbatches, the dry run's cell and its time limit
+MESH_STEPS = 3
+PIPE_MB, PIPE_B, PIPE_S = 4, 2, 4096
+PIPE_TOL = 1e-5
+DRYRUN_ARGS = ("--arch", "qwen3-1.7b", "--shape", "train_4k",
+               "--both-meshes")
+DRYRUN_TIMEOUT = 300
+# its state bytes a device on each mesh: the reference dry run's value
+# (its _tree_bytes_sharded), which tests/test_torch_sharding.py holds
+# these numbers to
+DRYRUN_STATE_BYTES = {"pod16x16": 82132992, "pod2x16x16": 82132992}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -2452,6 +2488,266 @@ def training(dev: torch.device, kernels: dict) -> dict:
             "m100_step_ms": num_m["step_ms"]}
 
 
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _full(t):
+    from torch.distributed.tensor import DTensor
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def mesh_phase(dev: torch.device, kernels: dict) -> dict:
+    """Phase 14: the mesh-bound group on a one-rank process group (NCCL
+    on the card).  (a) mamba2-130m's sharded train step at full width;
+    (b) ``pipeline_apply`` at P 1; (c) ``compressed_pod_mean``; (d) the
+    dry run of qwen3-1.7b x train_4k on both production meshes, in a
+    subprocess.  Returns the SSD kernel's counts on these paths."""
+    import importlib.util
+    import os
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.roofline import DeviceCounters
+    from repro_torch.launch.steps import loss_and_grads, make_train_step
+    from repro_torch.models import DTypePolicy, init_model, ssm_config
+    from repro_torch.models.common import tree_map
+    from repro_torch.models.lm import _cast_blocks, _layer_apply_full
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.compressed_sync import (compressed_pod_mean,
+                                                     uncompressed_pod_mean)
+    from repro_torch.runtime.pipeline import pipeline_apply, split_stages
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    fake_pg = importlib.util.find_spec(
+        "torch.testing._internal.distributed.fake_pg") is not None
+    print(f"mesh: torch.testing._internal.distributed.fake_pg "
+          f"{'is' if fake_pg else 'is NOT'} installed (the dry run's fake "
+          "world)")
+    check(fake_pg, "the fake process group's module is missing")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method="tcp://localhost:"
+                            f"{_free_port()}", rank=0, world_size=1)
+    mesh = make_test_mesh((1, 1), ("data", "model"), device_type=dev.type)
+    pod = make_test_mesh((1,), ("pod",), device_type=dev.type)
+    arch = get_arch(TRAIN_ARCH)
+    scfg = ssm_config(arch)
+    per_step = arch.n_layers * (TRAIN_SEQ // scfg.chunk)
+    policy = DTypePolicy.standard()
+    f32 = DTypePolicy(torch.float32, torch.float32, torch.float32)
+    rt = RuntimeConfig(accum_steps=1, remat="none")
+    opt_cfg = adamw.AdamWConfig(warmup_steps=20, total_steps=TRAIN_STEPS)
+    baxes = shd.batch_axes_for(mesh, TRAIN_BATCH)
+
+    def placed(params, batch, pol, axes):
+        pps = shd.param_pspecs(params, mesh)
+        return (shd.place(params, pps, mesh),
+                shd.place(adamw.init(params, pol),
+                          {"m": pps, "v": pps, "step": shd.P()}, mesh),
+                shd.place(batch, shd.input_pspecs(
+                    batch, mesh, next(iter(batch.values())).shape[0], axes),
+                    mesh))
+
+    # ---- (a) the sharded train step at full width, against the plain one
+    params = init_model(0, arch, policy, dev)
+    batch = _train_batch(arch.vocab, TRAIN_BATCH, TRAIN_SEQ, dev)
+    step = make_train_step(arch, rt, policy, opt_cfg)
+    dp, do, db = placed(params, batch, policy, baxes)
+    sharded_ms, losses = [], []
+    with shd.activation_sharding(mesh, baxes):
+        for i in range(MESH_STEPS):
+            zero_counts(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            dp, do, st = step(dp, do, db)
+            loss = float(_full(st["loss"]))
+            torch.cuda.synchronize()
+            sharded_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss)
+            hold_counts(kernels, f"sharded step {i + 1}",
+                        {"ssd_scan": per_step})
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    plain_ms = []
+    p, o = params, adamw.init(params, policy)
+    for _ in range(MESH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, st = step(p, o, batch)
+        float(st["loss"])
+        torch.cuda.synchronize()
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
+    del dp, do, db, p, o
+    torch.cuda.empty_cache()
+    sh_med = statistics.median(sharded_ms[1:])
+    pl_med = statistics.median(plain_ms[1:])
+    print(f"sharded step {TRAIN_ARCH} full B {TRAIN_BATCH} x S {TRAIN_SEQ} "
+          f"on a (1, 1) {backend} mesh: {MESH_STEPS} steps, losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}; {per_step} SSD "
+          f"launches a step; host-clock ms (fenced) "
+          f"{', '.join(f'{x:.1f}' for x in sharded_ms)} against the plain "
+          f"step's {', '.join(f'{x:.1f}' for x in plain_ms)}: median of "
+          f"the last {MESH_STEPS - 1} {sh_med:.1f} vs {pl_med:.1f} ms, the "
+          f"DTensor step {sh_med / pl_med:.2f}x the plain one")
+
+    # the f32 step and its gradients, sharded against plain on the card
+    p32 = init_model(0, arch, f32, dev)
+    b32 = _train_batch(arch.vocab, 1, GRAD_SEQ, dev)
+    step32 = make_train_step(arch, rt, f32, opt_cfg)
+    n_grad = arch.n_layers * (GRAD_SEQ // scfg.chunk)
+    # a batch of one row stays whole (batch axes ()): DTensor refuses to
+    # merge a Shard(0) dim of size 1 in a view, even on a mesh dim of 1
+    dp32, do32, db32 = placed(p32, b32, f32, ())
+    zero_counts(kernels)
+    with shd.activation_sharding(mesh, ()):
+        pm, _, stm = step32(dp32, do32, db32)
+        _, _, gm = loss_and_grads(dp32, arch, db32, rt, f32)
+        torch.cuda.synchronize()
+    hold_counts(kernels, "sharded f32 step + gradients",
+                {"ssd_scan": 2 * n_grad})
+    pm, gm = tree_map(_full, pm), tree_map(_full, gm)
+    pp, _, stp = step32(p32, adamw.init(p32, f32), b32)
+    _, _, gp = loss_and_grads(p32, arch, b32, rt, f32)
+    for k in ("loss", "grad_norm"):
+        got, want = float(_full(stm[k])), float(stp[k])
+        rel = abs(got - want) / abs(want)
+        print(f"f32 step sharded vs plain {k}: {got:.7g} vs {want:.7g}, "
+              f"relative {rel:.3g} (limit {GRAD_TOL:g})")
+        check(rel <= GRAD_TOL, f"sharded f32 step {k}: {rel:.3g}")
+    worst = 0.0
+    gh, gw = _tree_items(gm), _tree_items(gp)
+    check(sorted(gh) == sorted(gw), "the sharded gradients' leaves")
+    for name, g in gh.items():
+        rel = _rel_l2(g, gw[name])
+        worst = max(worst, rel)
+        check(rel <= GRAD_TOL, f"sharded gradient {name}: {rel:.3g}")
+    flips = total = 0
+    old, ref = _tree_items(p32), _tree_items(pp)
+    for name, new in _tree_items(pm).items():
+        d_m, d_p = new - old[name], ref[name] - old[name]
+        flips += int((torch.sign(d_m) != torch.sign(d_p)).sum())
+        total += d_m.numel()
+    print(f"f32 step sharded vs plain ({TRAIN_ARCH} full, B 1 x S "
+          f"{GRAD_SEQ}): {len(gh)} gradient leaves, worst relative L2 "
+          f"{worst:.3g} (limit {GRAD_TOL:g}); {flips} of {total} updates "
+          f"flipped (limit {FLIP_SHARE:g} of them)")
+    check(flips <= FLIP_SHARE * total, f"{flips} of {total} flipped")
+
+    # ---- (c) compressed sync of the sharded gradients (bf16 policy)
+    dp, _, db = placed(params, batch, policy, baxes)
+    with shd.activation_sharding(mesh, baxes):
+        _, _, grads = loss_and_grads(dp, arch, db, rt, policy)
+    with DeviceCounters() as c_cmp:
+        got = compressed_pod_mean(grads, pod)
+    with DeviceCounters() as c_ref:
+        uncompressed_pod_mean(grads, pod)
+    worst_share = 0.0
+    for name, g in _tree_items(grads).items():
+        g = _full(g).float()
+        err = float((_full(_tree_items(got)[name]).float() - g).abs().max())
+        step_q = float(g.abs().max()) / 127
+        worst_share = max(worst_share, err / max(step_q, 1e-30))
+        # round to nearest: half a step, plus the f32 scale's rounding
+        check(err <= (0.5 + 1e-4) * step_q, f"compressed {name}: error "
+              f"{err:.3g} > half the int8 step {step_q:.3g}")
+    ratio = c_cmp.collective_bytes / c_ref.collective_bytes
+    print(f"compressed_pod_mean over {len(_tree_items(grads))} gradient "
+          f"tensors on a one-rank pod group: worst error {worst_share:.3f} "
+          f"of its int8 step; payload {c_cmp.collective_bytes:.0f} B "
+          f"(all-gather {c_cmp.payload['all-gather']} B) against the bf16 "
+          f"all-reduce's {c_ref.collective_bytes:.0f} B: {ratio:.3f}x "
+          "(limit 0.6)")
+    check(ratio <= 0.6, f"compressed payload {ratio:.3f}x")
+    del dp, db, grads, got, pm, pp, gm, gp, dp32, do32, db32
+    torch.cuda.empty_cache()
+
+    # ---- (b) the pipeline at P 1 against the model's own block loop
+    g = torch.Generator(device=dev).manual_seed(3)
+    mbs = torch.randn((PIPE_MB, PIPE_B, PIPE_S, arch.d_model), generator=g,
+                      device=dev).to(policy.compute)
+    blocks = _cast_blocks(params["blocks"], policy.compute)
+
+    def layer_fn(bp, h):
+        return _layer_apply_full(bp, arch, h)[0]
+
+    with torch.no_grad():
+        staged = shd.place(split_stages(blocks, 1), tree_map(
+            lambda t: shd.P("pod", *([None] * (t.ndim - 1))),
+            split_stages(blocks, 1)), pod)
+        zero_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = pipeline_apply(layer_fn, staged, mbs, pod, "pod")
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        pipe_launches = hold_counts(
+            kernels, "pipeline P 1", {"ssd_scan": arch.n_layers * (
+                PIPE_S // scfg.chunk) * PIPE_MB})["ssd_scan"]
+        want = []
+        for m in range(PIPE_MB):
+            h = mbs[m]
+            for l in range(arch.n_layers):
+                h = layer_fn(tree_map(lambda t: t[l], blocks), h)
+            want.append(h)
+        want = torch.stack(want)
+    rel = _rel_l2(out, want)
+    print(f"pipeline_apply P 1: {PIPE_MB} microbatches of B {PIPE_B} x S "
+          f"{PIPE_S} through {arch.n_layers} blocks in {pipe_s:.2f} s, "
+          f"{pipe_launches} SSD launches; relative L2 against the block "
+          f"loop {rel:.3g} (limit {PIPE_TOL:g})")
+    check(tuple(out.shape) == tuple(mbs.shape), "pipeline output shape")
+    check(rel <= PIPE_TOL, f"pipeline vs block loop {rel:.3g}")
+    del mbs, blocks, staged, out, want, params
+    torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+    # ---- (d) the dry run on the host, in a subprocess
+    out_path = REPO / "build" / "dryrun_smoke.jsonl"
+    out_path.unlink(missing_ok=True)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *DRYRUN_ARGS,
+         "--out", str(out_path)], capture_output=True, text=True,
+        timeout=DRYRUN_TIMEOUT, cwd=REPO,
+        env={**os.environ, "PYTHONPATH": str(REPO / "src")})
+    dry_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"dry run exit {proc.returncode}:\n"
+          f"{proc.stderr[-3000:]}")
+    rows = [json.loads(line) for line in out_path.read_text().splitlines()]
+    check(len(rows) == 2 and all(r["status"] == "ok" for r in rows),
+          f"dry run rows {[r.get('status') for r in rows]}")
+    check(sorted(r["mesh"] for r in rows) == sorted(DRYRUN_STATE_BYTES),
+          f"dry run meshes {[r['mesh'] for r in rows]}")
+    for r in rows:
+        want = DRYRUN_STATE_BYTES[r["mesh"]]
+        check(r["state_bytes_per_device"] == want,
+              f"{r['mesh']}: state bytes {r['state_bytes_per_device']} != "
+              f"the reference's {want}")
+        rf = r["roofline"]
+        print(f"dry run {r['arch']} x {r['shape']} x {r['mesh']} "
+              f"({r['chips']} ranks): ok, trace {r['trace_s']:.1f} s, "
+              f"state {r['state_bytes_per_device'] / 2**30:.3f} GiB a "
+              f"device ({r['state_share_of_hbm']:.1%} of 80 GB), counted "
+              f"{r['counted_flops_per_device']:.4g} flops, "
+              f"{r['counted_bytes_per_device']:.4g} B, collectives "
+              f"{r['collective_bytes_per_device']:.4g} B; terms compute "
+              f"{rf['compute_s'] * 1e3:.2f} ms, memory "
+              f"{rf['memory_s'] * 1e3:.2f} ms, collective "
+              f"{rf['collective_s'] * 1e3:.2f} ms: dominant "
+              f"{rf['dominant']}, mfu bound {rf['mfu_bound']:.3f}")
+    print(f"dry run subprocess: {dry_s:.1f} s")
+    print(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return {"mesh_step_launches": per_step, "mesh_step_ms": sh_med,
+            "mesh_plain_step_ms": pl_med, "pipeline_launches": pipe_launches}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2939,6 +3235,11 @@ def main() -> int:
         "amm_gather": amm_gather_u32, "banked_kv_decode": banked_kv_decode,
         "ssd_scan": ssd_chunk_step, "cycle_lanes": cycle_lanes},
         schedule_kernel["launch_ms"], schedule_kernel["runner_cold_s"])
+
+    # ---- 14. the mesh ------------------------------------------------
+    train_ssd.update(mesh_phase(dev, {
+        "amm_gather": amm_gather_u32, "banked_kv_decode": banked_kv_decode,
+        "ssd_scan": ssd_chunk_step, "cycle_lanes": cycle_lanes}))
 
     kernels = [{
         "name": "amm_gather", "route": "cuda",

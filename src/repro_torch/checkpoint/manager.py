@@ -12,8 +12,12 @@ order (JAX's).  A bf16 leaf is stored as its ``uint16`` bits with the
 logical dtype "bfloat16"; restore maps that name itself (uint16 bits ->
 int16 tensor -> bf16 view), since numpy knows no bfloat16 without
 ml_dtypes.  A write goes to ``ckpt_*.tmp`` and is renamed when whole.
-``restore`` puts every leaf on its template's device and dtype; there
-is no sharding argument (one card).
+``restore`` puts every leaf on its template's device and dtype, or,
+given ``shardings`` (a tree of ``launch.sharding.NamedPlacement``),
+places it as a DTensor on that mesh: the saving mesh does not matter
+(elastic re-sharding).  A tree of DTensors is saved whole: every rank
+gathers each leaf (a collective, so every rank calls ``save``) and
+global rank 0 writes it.
 """
 from __future__ import annotations
 
@@ -27,6 +31,8 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.common import named_leaves
 
@@ -48,7 +54,10 @@ def _unflatten(template: Any, leaves: "dict[str, Any]",
 
 
 def _to_host(t: torch.Tensor) -> "tuple[np.ndarray, str]":
-    """A copy of ``t`` as numpy and its logical dtype name."""
+    """A copy of ``t`` (the whole tensor of a DTensor) as numpy and its
+    logical dtype name."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().cpu()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16).copy(), _BF16
@@ -96,7 +105,11 @@ class CheckpointManager:
         """Atomic save of a nested dict of tensors; returns the
         checkpoint path.  The leaves are copied to the host before it
         returns, so a non-blocking save writes the values of the call."""
-        host = [(n, *_to_host(x)) for n, x in _flatten(tree)]
+        leaves = _flatten(tree)
+        host = [(n, *_to_host(x)) for n, x in leaves]
+        if any(isinstance(x, DTensor) for _, x in leaves) and \
+                dist.get_rank() != 0:
+            return self._step_dir(step)     # rank 0 writes the whole tree
 
         def write() -> None:
             final = self._step_dir(step)
@@ -140,10 +153,13 @@ class CheckpointManager:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)
 
     # ------------------------------------------------------------------
-    def restore(self, template: Any, step: int | None = None) -> Any:
+    def restore(self, template: Any, step: int | None = None,
+                shardings: Any = None) -> Any:
         """Restore into the structure of ``template`` (the latest step
-        when ``step`` is None), each leaf on its template's device and
-        in its dtype."""
+        when ``step`` is None), each leaf in its template's dtype: on the
+        template's device, or, with ``shardings`` (a tree of
+        ``NamedPlacement`` of the template's structure), as a DTensor
+        placed on its mesh, each rank keeping its shard."""
         self.wait()
         if step is None:
             step = self.latest_step()
@@ -153,6 +169,7 @@ class CheckpointManager:
         with open(os.path.join(d, _MANIFEST)) as f:
             manifest = json.load(f)
         by_name = {leaf["name"]: leaf for leaf in manifest["leaves"]}
+        placed = dict(_flatten(shardings)) if shardings is not None else {}
         out = {}
         for name, tmpl in _flatten(template):
             if name not in by_name:
@@ -163,5 +180,11 @@ class CheckpointManager:
             if tuple(t.shape) != tuple(tmpl.shape):
                 raise ValueError(f"leaf {name}: saved {tuple(t.shape)} != "
                                  f"template {tuple(tmpl.shape)}")
-            out[name] = t.to(device=tmpl.device, dtype=tmpl.dtype)
+            if name in placed:
+                where = placed[name]
+                out[name] = distribute_tensor(
+                    t.to(device=where.mesh.device_type, dtype=tmpl.dtype),
+                    where.mesh, where.placements, src_data_rank=None)
+            else:
+                out[name] = t.to(device=tmpl.device, dtype=tmpl.dtype)
         return _unflatten(template, out)

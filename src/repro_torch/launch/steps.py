@@ -16,6 +16,7 @@ from typing import Callable
 import torch
 
 from repro_torch.configs.base import ArchConfig, RuntimeConfig
+from repro_torch.dtensor_ops import argmax_last, placed_like
 from repro_torch.models.common import (DTypePolicy, Params, named_leaves,
                                        tree_map)
 from repro_torch.models.lm import decode_step, loss_fn, prefill
@@ -28,12 +29,14 @@ def loss_and_grads(params: Params, arch: ArchConfig,
                    ) -> "tuple[torch.Tensor, dict, Params]":
     """(loss, metrics, gradients in the params' layout and dtypes).  A
     param the loss does not reach gets a zero gradient, as under
-    ``jax.grad``."""
+    ``jax.grad``.  A DTensor param's gradient comes back in the param's
+    placements (its data-parallel sums reduced), as the reference's
+    gradients take the params' shardings."""
     leaves = tree_map(lambda t: t.detach().requires_grad_(), params)
     loss, metrics = loss_fn(leaves, arch, batch, policy, rt=rt)
     flat = [t for _, t in named_leaves(leaves)]
     grads = torch.autograd.grad(loss, flat, allow_unused=True)
-    of_leaf = {id(t): torch.zeros_like(t) if g is None else g
+    of_leaf = {id(t): torch.zeros_like(t) if g is None else placed_like(g, t)
                for t, g in zip(flat, grads)}
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             tree_map(lambda t: of_leaf[id(t)], leaves))
@@ -59,8 +62,9 @@ def make_train_step(arch: ArchConfig, rt: RuntimeConfig,
                 n = x.shape[0] // a
                 return x[i * n:(i + 1) * n]
 
-            g_sum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=policy.moments, device=p.device), params)
+            # zeros_like keeps a DTensor param's placements
+            g_sum = tree_map(lambda p: torch.zeros_like(
+                p, dtype=policy.moments), params)
             l_sum = torch.zeros((), dtype=torch.float32,
                                 device=next(iter(batch.values())).device)
             for i in range(a):
@@ -97,7 +101,7 @@ def make_decode_step(arch: ArchConfig, policy: DTypePolicy, *,
     def serve_step(params, cache, tokens):
         logits, cache = decode_step(params, arch, cache, tokens, policy,
                                     mla_absorb=mla_absorb)
-        next_tok = torch.argmax(logits[:, -1, :], dim=-1)[:, None]
+        next_tok = argmax_last(logits[:, -1, :])[:, None]
         return next_tok.to(torch.int32), logits, cache
 
     return serve_step

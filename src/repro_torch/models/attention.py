@@ -21,10 +21,12 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from functools import partial
 
 import torch
 import torch.nn.functional as F
-
+from repro_torch.dtensor_ops import (merge_heads, per_head, split_dim,
+                                     write_at, zero_pad)
 from repro_torch.models.common import (Params, apply_rope, dense_init,
                                        norm_init, rms_norm)
 
@@ -106,7 +108,12 @@ def _flash_block_scan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0, block_kv=1024):
-    return _flash_block_scan(q, k, v, causal, q_offset, block_kv)
+    """The block scan; DTensor inputs run it on each rank's batch rows
+    and, where the kv heads divide over a mesh dim as the query heads
+    do, its heads (``per_head``)."""
+    return per_head(partial(_flash_block_scan, causal=causal,
+                            q_offset=q_offset, block_kv=block_kv),
+                    q, (q, (0, 1)), (k, (0, 1)), (v, (0, 1)))
 
 
 def _inv_sqrt_f32(n: int) -> float:
@@ -121,7 +128,7 @@ def _write_row(cache: torch.Tensor, row: torch.Tensor,
     ``cache_len`` clamped to the capacity's last slot, as JAX's
     ``dynamic_update_slice_in_dim`` clamps its start."""
     at = torch.clamp(cache_len.reshape(1).long(), 0, cache.shape[dim] - 1)
-    cache.index_copy_(dim, at, row.to(cache.dtype))
+    write_at(cache, row, at, dim)
 
 
 # ======================================================================
@@ -143,11 +150,10 @@ def gqa_init(gen: torch.Generator, cfg: AttnConfig) -> Params:
 
 def _project_qkv(params: Params, cfg: AttnConfig, x: torch.Tensor,
                  positions: torch.Tensor):
-    b, s, _ = x.shape
     hd = cfg.head_dim
-    q = (x @ params["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, hd)
-    k = (x @ params["wk"].to(x.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (x @ params["wv"].to(x.dtype)).reshape(b, s, cfg.n_kv_heads, hd)
+    q = split_dim(x @ params["wq"].to(x.dtype), -1, cfg.n_heads, hd)
+    k = split_dim(x @ params["wk"].to(x.dtype), -1, cfg.n_kv_heads, hd)
+    v = split_dim(x @ params["wv"].to(x.dtype), -1, cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm"]["scale"])
         k = rms_norm(k, params["k_norm"]["scale"])
@@ -187,9 +193,19 @@ def gqa_prefill(params: Params, cfg: AttnConfig, x: torch.Tensor,
     out = flash_attention(q.transpose(1, 2), kr.transpose(1, 2),
                           vr.transpose(1, 2), causal=cfg.causal,
                           block_kv=cfg.block_kv)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.head_dim)
+    out = merge_heads(out.transpose(1, 2))
     return out @ params["wo"].to(x.dtype), (k.transpose(1, 2),
                                             v.transpose(1, 2))
+
+
+def _gqa_decode_core(qg, kc, vc, valid):
+    """Scores of [B, Hkv, G, D] queries against the whole cache, masked
+    past ``valid``, softmax and the weighted V, in f32."""
+    hd = qg.shape[-1]
+    scores = (qg.float() @ kc.float().transpose(-1, -2)) / math.sqrt(hd)
+    scores = torch.where(valid, scores, -math.inf)
+    w = torch.softmax(scores, dim=-1)
+    return w @ vc.float()                            # [B, Hkv, G, D]
 
 
 def gqa_decode(params: Params, cfg: AttnConfig, x: torch.Tensor,
@@ -207,12 +223,10 @@ def gqa_decode(params: Params, cfg: AttnConfig, x: torch.Tensor,
     _write_row(vc, v.transpose(1, 2), cache_len, 2)
     s_max = kc.shape[2]
     g = cfg.n_heads // cfg.n_kv_heads
-    qg = q.reshape(b, cfg.n_kv_heads, g, hd)        # [B, Hkv, G, D]
-    scores = (qg.float() @ kc.float().transpose(-1, -2)) / math.sqrt(hd)
+    qg = split_dim(q[:, 0], 1, cfg.n_kv_heads, g)   # [B, Hkv, G, D]
     valid = torch.arange(s_max, device=x.device) <= cache_len
-    scores = torch.where(valid, scores, -math.inf)
-    w = torch.softmax(scores, dim=-1)
-    out = w @ vc.float()                             # [B, Hkv, G, D]
+    out = per_head(_gqa_decode_core, qg, (qg, (0, 1)), (kc, (0, 1)),
+                   (vc, (0, 1)), (valid, (None, None)))
     out = out.reshape(b, 1, cfg.n_heads * hd).to(x.dtype)
     return out @ params["wo"].to(x.dtype), (kc, vc)
 
@@ -244,7 +258,7 @@ def _mla_qkv_full(params: Params, cfg: AttnConfig, x: torch.Tensor,
     hd, r, kvr = cfg.head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
     qa = rms_norm(x @ params["wq_a"].to(x.dtype),
                   params["q_a_norm"]["scale"])
-    q = (qa @ params["wq_b"].to(x.dtype)).reshape(b, s, cfg.n_heads, hd + r)
+    q = split_dim(qa @ params["wq_b"].to(x.dtype), -1, cfg.n_heads, hd + r)
     q_nope, q_rope = q[..., :hd], q[..., hd:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
 
@@ -264,17 +278,16 @@ def mla_apply(params: Params, cfg: AttnConfig, x: torch.Tensor,
     if positions is None:
         positions = _positions(s, x.device)
     q_nope, q_rope, c_kv, k_rope = _mla_qkv_full(params, cfg, x, positions)
-    k_nope = (c_kv @ params["wk_b"].to(x.dtype)).reshape(
-        b, s, cfg.n_heads, hd)
-    v = (c_kv @ params["wv_b"].to(x.dtype)).reshape(b, s, cfg.n_heads, hd)
+    k_nope = split_dim(c_kv @ params["wk_b"].to(x.dtype), -1, cfg.n_heads, hd)
+    v = split_dim(c_kv @ params["wv_b"].to(x.dtype), -1, cfg.n_heads, hd)
     # fold the decoupled rope part into the head dim (shared k_rope per head)
     q = torch.cat([q_nope, q_rope], dim=-1)
     k = torch.cat([k_nope, k_rope.expand(b, s, cfg.n_heads, r)], dim=-1)
-    v_pad = F.pad(v, (0, r))
+    v_pad = zero_pad(v, -1, 0, r)
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v_pad.transpose(1, 2), causal=cfg.causal,
                           block_kv=cfg.block_kv)
-    out = out.transpose(1, 2)[..., :hd].reshape(b, s, cfg.n_heads * hd)
+    out = merge_heads(out.transpose(1, 2)[..., :hd])
     return out @ params["wo"].to(x.dtype)
 
 
@@ -290,6 +303,33 @@ def mla_prefill(params: Params, cfg: AttnConfig, x: torch.Tensor,
     return out, (c_kv, k_rope[:, :, 0, :])
 
 
+def _mla_decode_core(q_nope_h, q_rope_h, c_cache, r_cache, wk_b, wv_b,
+                     valid, *, scale, hd, absorb):
+    """MLA's scores, softmax and output for [B, H, *] queries against
+    the latent cache, in f32 (see ``mla_decode``)."""
+    h = q_nope_h.shape[1]
+    kvr = c_cache.shape[-1]
+    c32, r32 = c_cache.float(), r_cache.float()
+    s_rope = q_rope_h @ r32.transpose(1, 2)        # [B, H, S]
+    if absorb:
+        wk = wk_b.float().reshape(kvr, h, hd)
+        q_lat = torch.einsum("bhd,khd->bhk", q_nope_h, wk)    # [B,H,kvr]
+        s_lat = q_lat @ c32.transpose(1, 2)                   # [B,H,S]
+        scores = (s_lat + s_rope) * scale
+        scores = torch.where(valid, scores, -math.inf)
+        w = torch.softmax(scores, dim=-1)
+        ctx_lat = w @ c32                                     # [B,H,kvr]
+        wv = wv_b.float().reshape(kvr, h, hd)
+        return torch.einsum("bhk,khd->bhd", ctx_lat, wv)
+    k_nope = (c32 @ wk_b.float()).unflatten(-1, (h, hd))
+    v_full = (c32 @ wv_b.float()).unflatten(-1, (h, hd))
+    s_nope = torch.einsum("bhd,bshd->bhs", q_nope_h, k_nope)
+    scores = (s_nope + s_rope) * scale
+    scores = torch.where(valid, scores, -math.inf)
+    w = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", w, v_full)
+
+
 def mla_decode(params: Params, cfg: AttnConfig, x: torch.Tensor,
                cache: "tuple[torch.Tensor, torch.Tensor]",
                cache_len: torch.Tensor, absorb: bool = False):
@@ -301,7 +341,7 @@ def mla_decode(params: Params, cfg: AttnConfig, x: torch.Tensor,
     absorption); O(S*kvr) instead of O(S*H*hd) bytes.
     """
     b = x.shape[0]
-    hd, r, kvr = cfg.head_dim, cfg.rope_head_dim, cfg.kv_lora_rank
+    hd, r = cfg.head_dim, cfg.rope_head_dim
     h = cfg.n_heads
     positions = cache_len.reshape(1).to(torch.int32)
     q_nope, q_rope, c_new, k_rope_new = _mla_qkv_full(params, cfg, x,
@@ -314,28 +354,11 @@ def mla_decode(params: Params, cfg: AttnConfig, x: torch.Tensor,
 
     q_nope_h = q_nope[:, 0].float()               # [B, H, hd]
     q_rope_h = q_rope[:, 0].float()               # [B, H, r]
-    scale = _inv_sqrt_f32(hd + r)
-    c32, r32 = c_cache.float(), r_cache.float()
-    s_rope = q_rope_h @ r32.transpose(1, 2)        # [B, H, S]
-
-    if absorb:
-        wk = params["wk_b"].float().reshape(kvr, h, hd)
-        q_lat = torch.einsum("bhd,khd->bhk", q_nope_h, wk)    # [B,H,kvr]
-        s_lat = q_lat @ c32.transpose(1, 2)                   # [B,H,S]
-        scores = (s_lat + s_rope) * scale
-        scores = torch.where(valid, scores, -math.inf)
-        w = torch.softmax(scores, dim=-1)
-        ctx_lat = w @ c32                                     # [B,H,kvr]
-        wv = params["wv_b"].float().reshape(kvr, h, hd)
-        out = torch.einsum("bhk,khd->bhd", ctx_lat, wv)
-    else:
-        k_nope = (c32 @ params["wk_b"].float()).reshape(b, s_max, h, hd)
-        v_full = (c32 @ params["wv_b"].float()).reshape(b, s_max, h, hd)
-        s_nope = torch.einsum("bhd,bshd->bhs", q_nope_h, k_nope)
-        scores = (s_nope + s_rope) * scale
-        scores = torch.where(valid, scores, -math.inf)
-        w = torch.softmax(scores, dim=-1)
-        out = torch.einsum("bhs,bshd->bhd", w, v_full)
-
+    core = partial(_mla_decode_core, scale=_inv_sqrt_f32(hd + r), hd=hd,
+                   absorb=absorb)
+    out = per_head(core, q_nope_h, (q_nope_h, (0, 1)), (q_rope_h, (0, 1)),
+                   (c_cache, (0, None)), (r_cache, (0, None)),
+                   (params["wk_b"], (None, 1)), (params["wv_b"], (None, 1)),
+                   (valid, (None, None)))
     out = out.reshape(b, 1, h * hd).to(x.dtype)
     return out @ params["wo"].to(x.dtype), (c_cache, r_cache)

@@ -27,6 +27,15 @@ is given, in place (the hybrid's shared K/V too), and returns a cache
 that shares those tensors (a functional copy would move the whole cache
 every step); clone the cache to decode twice from one state.
 
+Activation-sharding hooks go through ``repro_torch.launch.sharding.
+constrain`` at the reference's places (the boundary activations, the
+logits), so the model code stays mesh-agnostic: outside an
+``activation_sharding`` context they are the identity, and inside one
+they redistribute DTensor activations (``launch/sharding.py``).  What
+DTensor cannot run as written (head splits, the embedding lookup, the
+cache writes, the gold logit) goes through ``repro_torch.dtensor_ops``,
+which is the plain op on a plain tensor.
+
 Kept from the reference, as it is: the hybrid's ``prefill`` skips the
 shared block (its logits are the model's without it, and ``shared_k``/
 ``shared_v`` stay zero); the vlm's ``prefill`` and ``decode_step``
@@ -43,6 +52,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig, RuntimeConfig
 from repro_torch.device import resolve_device
+from repro_torch.dtensor_ops import (embedding_rows, merge_heads, per_head,
+                                     put, split_dim, take_last)
+from repro_torch.launch.sharding import constrain, tp_hint
 from repro_torch.models.attention import (AttnConfig, flash_attention,
                                           gqa_apply, gqa_decode, gqa_init,
                                           gqa_prefill, mla_apply, mla_decode,
@@ -63,8 +75,14 @@ from repro_torch.models.ssm import (SSMConfig, mamba2_apply, mamba2_decode,
 def attn_config(arch: ArchConfig, causal: bool = True) -> AttnConfig:
     """The JAX adapter's config: causal for the decoders, non-causal for
     the encoder's self attention and the cross attention.  Its
-    ``kv_repeat`` comes from the mesh's TP degree, which is 1 without a
-    mesh, and the port has none."""
+    ``kv_repeat`` comes from the TP degree of the activation-sharding
+    context (``tp_hint``, 1 outside one): kv heads are replicated up to
+    it where they are fewer and it divides the query heads."""
+    tp = tp_hint()
+    rep = 1
+    if tp > 1 and arch.n_kv_heads < tp and tp % arch.n_kv_heads == 0 \
+            and arch.n_heads % tp == 0:
+        rep = tp // arch.n_kv_heads        # Megatron kv replication
     return AttnConfig(
         d_model=arch.d_model,
         n_heads=arch.n_heads,
@@ -77,6 +95,7 @@ def attn_config(arch: ArchConfig, causal: bool = True) -> AttnConfig:
         q_lora_rank=arch.q_lora_rank,
         kv_lora_rank=arch.kv_lora_rank,
         rope_head_dim=arch.rope_head_dim,
+        kv_repeat=rep,
     )
 
 
@@ -168,16 +187,19 @@ def _layer_apply_full(p: Params, arch: ArchConfig, h: torch.Tensor
     """Full-sequence decoder layer (train / prefill without a cache).
     Returns (h, aux_loss)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    x = rms_norm(h, p["ln"]["scale"])
+    # sub-block outputs take the "hidden" layout before the residual add
+    x = constrain(rms_norm(h, p["ln"]["scale"]), "tp_in")
     if _has_ssm(arch):
-        return h + mamba2_apply(p["mamba"], ssm_config(arch), x), aux
+        h = h + constrain(mamba2_apply(p["mamba"], ssm_config(arch), x),
+                          "hidden")
+        return constrain(h, "hidden"), aux
     attn = mla_apply if arch.attn_type == "mla" else gqa_apply
-    h = h + attn(p["attn"], attn_config(arch), x)
-    x2 = rms_norm(h, p["ln2"]["scale"])
-    h = h + _ffn(p, arch, x2)
+    h = h + constrain(attn(p["attn"], attn_config(arch), x), "hidden")
+    x2 = constrain(rms_norm(h, p["ln2"]["scale"]), "tp_in")
+    h = h + constrain(_ffn(p, arch, x2), "hidden")
     if arch.family == "moe":
         aux = aux_load_balance_loss(p["moe"], moe_config(arch), x2)
-    return h, aux
+    return constrain(h, "hidden"), aux
 
 
 def _shared_block_apply(p: Params, arch: ArchConfig, h: torch.Tensor,
@@ -186,9 +208,13 @@ def _shared_block_apply(p: Params, arch: ArchConfig, h: torch.Tensor,
     ``attend(attn_params, x)`` is its attention: the full-sequence GQA
     in ``forward``, one step against the shared cache in
     ``decode_step``."""
-    z = torch.cat([h, emb0.to(h.dtype)], dim=-1) @ p["w_cat"].to(h.dtype)
-    z = z + attend(p["attn"], rms_norm(z, p["ln"]["scale"]))
-    z = z + mlp_apply(p["mlp"], rms_norm(z, p["ln2"]["scale"]), arch.act)
+    z = torch.cat([constrain(h, "tp_in"), emb0.to(h.dtype)], dim=-1) \
+        @ p["w_cat"].to(h.dtype)
+    z = constrain(z, "hidden")
+    z = z + constrain(attend(p["attn"], rms_norm(z, p["ln"]["scale"])),
+                      "hidden")
+    z = z + constrain(mlp_apply(p["mlp"], rms_norm(z, p["ln2"]["scale"]),
+                                arch.act), "hidden")
     return h + z
 
 
@@ -201,12 +227,12 @@ def _cross_attn_full(p: Params, arch: ArchConfig, x: torch.Tensor,
     b, s, _ = x.shape
     hd = cfg.head_dim
     enc = enc_out.to(x.dtype)
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, s, cfg.n_heads, hd)
-    k = (enc @ p["wk"].to(x.dtype)).reshape(b, -1, cfg.n_kv_heads, hd)
-    v = (enc @ p["wv"].to(x.dtype)).reshape(b, -1, cfg.n_kv_heads, hd)
+    q = split_dim(x @ p["wq"].to(x.dtype), -1, cfg.n_heads, hd)
+    k = split_dim(enc @ p["wk"].to(x.dtype), -1, cfg.n_kv_heads, hd)
+    v = split_dim(enc @ p["wv"].to(x.dtype), -1, cfg.n_kv_heads, hd)
     k, v = k.transpose(1, 2), v.transpose(1, 2)
     o = flash_attention(q.transpose(1, 2), k, v, causal=False)
-    o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * hd)
+    o = merge_heads(o.transpose(1, 2))
     return o @ p["wo"].to(x.dtype), (k, v)
 
 
@@ -215,15 +241,20 @@ def _cross_decoder_layer(bp: Params, arch: ArchConfig, h: torch.Tensor,
     """One encdec decoder layer over the whole sequence: causal self
     attention, cross attention to ``enc_out``, MLP.  Returns (h, (self
     K, self V, cross K, cross V)), each [B, Hkv, *, hd]."""
-    o, (kc, vc) = gqa_prefill(bp["attn"], attn_config(arch),
-                              rms_norm(h, bp["ln"]["scale"]))
+    o, (kc, vc) = gqa_prefill(bp["attn"], attn_config(arch), constrain(
+        rms_norm(h, bp["ln"]["scale"]), "tp_in"))
     h = h + o
-    o, (xk, xv) = _cross_attn_full(bp["cross"], arch,
-                                   rms_norm(h, bp["ln_cross"]["scale"]),
-                                   enc_out)
+    o, (xk, xv) = _cross_attn_full(bp["cross"], arch, constrain(
+        rms_norm(h, bp["ln_cross"]["scale"]), "tp_in"), enc_out)
     h = h + o
-    h = h + mlp_apply(bp["mlp"], rms_norm(h, bp["ln2"]["scale"]), arch.act)
-    return h, (kc, vc, xk, xv)
+    h = h + mlp_apply(bp["mlp"], constrain(
+        rms_norm(h, bp["ln2"]["scale"]), "tp_in"), arch.act)
+    return constrain(h, "hidden"), (kc, vc, xk, xv)
+
+
+def _cross_decode_core(q, ck, cv):
+    s = (q.float() @ ck.float().transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    return torch.softmax(s, dim=-1) @ cv.float()
 
 
 def _cross_attn_decode(p: Params, arch: ArchConfig, x: torch.Tensor,
@@ -234,9 +265,9 @@ def _cross_attn_decode(p: Params, arch: ArchConfig, x: torch.Tensor,
     b = x.shape[0]
     hd = arch.resolved_head_dim
     g = arch.n_heads // arch.n_kv_heads
-    q = (x @ p["wq"].to(x.dtype)).reshape(b, arch.n_kv_heads, g, hd)
-    s = (q.float() @ ck.float().transpose(-1, -2)) / math.sqrt(hd)
-    o = torch.softmax(s, dim=-1) @ cv.float()
+    q = split_dim(x @ p["wq"].to(x.dtype), -1, arch.n_kv_heads, g, hd)
+    o = per_head(_cross_decode_core, q, (q, (0, 1)), (ck, (0, 1)),
+                 (cv, (0, 1)))
     o = o.reshape(b, 1, arch.n_heads * hd).to(x.dtype)
     return o @ p["wo"].to(x.dtype)
 
@@ -297,15 +328,15 @@ def embed_tokens(params: Params, arch: ArchConfig, tokens: torch.Tensor,
                  compute_dtype: torch.dtype) -> torch.Tensor:
     """Rows of the embedding times sqrt(d_model), the scale rounded to
     the compute dtype first, as JAX rounds it."""
-    e = params["embed"][tokens.long()].to(compute_dtype)
+    e = embedding_rows(params["embed"], tokens.long()).to(compute_dtype)
     scale = torch.tensor(math.sqrt(arch.d_model), dtype=torch.float32,
                          device=e.device).to(compute_dtype)
-    return e * scale
+    return constrain(e * scale, "hidden")
 
 
 def _logits(params: Params, h: torch.Tensor, cd: torch.dtype
             ) -> torch.Tensor:
-    h = rms_norm(h, params["final_norm"]["scale"])
+    h = constrain(rms_norm(h, params["final_norm"]["scale"]), "tp_in")
     head = params.get("head")
     w = (params["embed"].T if head is None else head).to(cd)
     return h @ w
@@ -327,14 +358,16 @@ def _encoder_forward(params: Params, arch: ArchConfig,
     acfg = attn_config(arch, causal=False)
 
     def one_layer(h, bp):
-        h = h + gqa_apply(bp["attn"], acfg, rms_norm(h, bp["ln"]["scale"]))
-        return h + mlp_apply(bp["mlp"], rms_norm(h, bp["ln2"]["scale"]),
-                             arch.act)
+        h = h + gqa_apply(bp["attn"], acfg, constrain(
+            rms_norm(h, bp["ln"]["scale"]), "tp_in"))
+        h = h + mlp_apply(bp["mlp"], constrain(
+            rms_norm(h, bp["ln2"]["scale"]), "tp_in"), arch.act)
+        return constrain(h, "hidden")
 
     h = frames
     for l in range(arch.enc_layers):
         h = _remat(rt, one_layer, h, _layer(params["enc_blocks"], l))
-    return rms_norm(h, params["enc_norm"]["scale"])
+    return constrain(rms_norm(h, params["enc_norm"]["scale"]), "tp_in")
 
 
 def forward(params: Params, arch: ArchConfig, batch: "dict[str, torch.Tensor]",
@@ -361,7 +394,7 @@ def forward(params: Params, arch: ArchConfig, batch: "dict[str, torch.Tensor]",
         for l in range(arch.n_layers):
             h = _remat(rt, lambda hh, bp: _cross_decoder_layer(
                 bp, arch, hh, enc_out)[0], h, _layer(params["blocks"], l))
-        return _logits(params, h, cd), aux
+        return constrain(_logits(params, h, cd), "logits"), aux
     blocks = _cast_blocks(params["blocks"], cd)
     every, emb0 = _shared_every(arch), h
     acfg = attn_config(arch)
@@ -376,7 +409,7 @@ def forward(params: Params, arch: ArchConfig, batch: "dict[str, torch.Tensor]",
     for l in range(arch.n_layers):
         h, a = _remat(rt, one_layer, h, _layer(blocks, l), l)
         aux = aux + a
-    return _logits(params, h, cd), aux
+    return constrain(_logits(params, h, cd), "logits"), aux
 
 
 def loss_fn(params: Params, arch: ArchConfig,
@@ -395,9 +428,9 @@ def loss_fn(params: Params, arch: ArchConfig,
     lg = logits.float()
     m = torch.amax(lg, dim=-1, keepdim=True).detach()
     lse = torch.log(torch.sum(torch.exp(lg - m), dim=-1)) + m[..., 0]
-    # the gold logit; JAX takes it by a masked reduce over the vocab,
-    # which gives the same value
-    gold = torch.gather(lg, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
+    # the gold logit (JAX takes it by a masked reduce over the vocab,
+    # which gives the same value; so does take_last on vocab shards)
+    gold = take_last(lg, torch.clamp(labels, min=0))
     nll = lse - gold
     mask = (labels >= 0).float()
     denom = torch.clamp(mask.sum(), min=1.0)
@@ -488,28 +521,34 @@ def prefill(params: Params, arch: ArchConfig,
         bp = _layer(params["blocks"], l)
         if arch.is_encdec:
             h, (kc, vc, xk, xv) = _cross_decoder_layer(bp, arch, h, enc_out)
-            cache["k"][l, :, :, :s] = kc.to(cd)
-            cache["v"][l, :, :, :s] = vc.to(cd)
+            put(cache, "k", (l, slice(None), slice(None), slice(s)),
+                 kc.to(cd))
+            put(cache, "v", (l, slice(None), slice(None), slice(s)),
+                 vc.to(cd))
             xks.append(xk[:, :, :s_enc])
             xvs.append(xv[:, :, :s_enc])
             continue
-        xn = rms_norm(h, bp["ln"]["scale"])
+        xn = constrain(rms_norm(h, bp["ln"]["scale"]), "tp_in")
         if _has_ssm(arch):
             o, (hf, conv_tail) = mamba2_apply(bp["mamba"], ssm_config(arch),
                                               xn, return_state=True)
-            cache["ssm_h"][l] = hf
-            cache["ssm_conv"][l] = conv_tail.to(cd)
+            put(cache, "ssm_h", (l,), hf)
+            put(cache, "ssm_conv", (l,), conv_tail.to(cd))
         elif arch.attn_type == "mla":
             o, (ckv, kr) = mla_prefill(bp["attn"], acfg, xn)
-            cache["c_kv"][l, :, :s] = ckv.to(cd)
-            cache["k_rope"][l, :, :s] = kr.to(cd)
+            put(cache, "c_kv", (l, slice(None), slice(s)), ckv.to(cd))
+            put(cache, "k_rope", (l, slice(None), slice(s)), kr.to(cd))
         else:
             o, (kc, vc) = gqa_prefill(bp["attn"], acfg, xn)
-            cache["k"][l, :, :, :s] = kc.to(cd)
-            cache["v"][l, :, :, :s] = vc.to(cd)
+            put(cache, "k", (l, slice(None), slice(None), slice(s)),
+                 kc.to(cd))
+            put(cache, "v", (l, slice(None), slice(None), slice(s)),
+                 vc.to(cd))
         h = h + o
         if not _has_ssm(arch):
-            h = h + _ffn(bp, arch, rms_norm(h, bp["ln2"]["scale"]))
+            h = h + _ffn(bp, arch, constrain(
+                rms_norm(h, bp["ln2"]["scale"]), "tp_in"))
+        h = constrain(h, "hidden")
     if arch.is_encdec:
         cache["cross_k"] = torch.stack(xks).to(cd)
         cache["cross_v"] = torch.stack(xvs).to(cd)
@@ -571,4 +610,4 @@ def decode_step(params: Params, arch: ArchConfig, cache: Params,
                                            cache["cross_v"][l])
             h = h + _ffn(bp, arch, rms_norm(h, bp["ln2"]["scale"]))
     cache = {**cache, "len": cache["len"] + 1}
-    return _logits(params, h, cd), cache
+    return constrain(_logits(params, h, cd), "logits"), cache

@@ -10,10 +10,12 @@ expert axis, and the combine is a scatter-add in f32.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dtensor_ops import expert_map
 from repro_torch.models.common import ACTIVATIONS, Params, dense_init
 
 
@@ -85,26 +87,34 @@ def moe_apply(params: Params, cfg: MoEConfig, x: torch.Tensor
     rows = torch.arange(b, device=dev)[:, None, None]
     xe = x_pad[rows, table]                                    # [B, E, C, D]
 
-    f = ACTIVATIONS[cfg.act]
-    up = torch.einsum("becd,edf->becf", xe, params["w_up"].to(x.dtype))
-    if cfg.gated:
-        up = f(torch.einsum("becd,edf->becf", xe,
-                            params["w_gate"].to(x.dtype))) * up
-    else:
-        up = f(up)
-    ye = torch.einsum("becf,efd->becd", up, params["w_down"].to(x.dtype))
+    ws = [params[k].to(x.dtype) for k in ("w_up", "w_gate", "w_down")
+          if k in params]
+    ye = expert_map(partial(_ffn_local, cfg), xe, *ws)
 
     # combine back with gate weights (row-local scatter-add)
     gate_tbl = torch.zeros((b, e * cap + 1), dtype=torch.float32,
                            device=dev).scatter(1, dest,
                                                top_g.reshape(b, s * k))
     gate_tbl = gate_tbl[:, :-1].reshape(b, e, cap)
+    # per row (a DTensor shards the expert axis, which a flatten across
+    # rows would cross): slot (e, c) adds into its token's row
     contrib = (ye * gate_tbl[..., None].to(ye.dtype)).reshape(
-        b * e * cap, d).float()
-    flat_rows = (table + rows * (s + 1)).reshape(-1)
-    y = torch.zeros((b * (s + 1), d), dtype=torch.float32,
-                    device=dev).index_add(0, flat_rows, contrib)
-    return y.view(b, s + 1, d)[:, :s].to(x.dtype)
+        b, e * cap, d).float()
+    dest_rows = table.reshape(b, e * cap, 1).expand(-1, -1, d)
+    y = torch.zeros((b, s + 1, d), dtype=torch.float32,
+                    device=dev).scatter_add(1, dest_rows, contrib)
+    return y[:, :s].to(x.dtype)
+
+
+def _ffn_local(cfg: MoEConfig, xe, w_up, *rest):
+    """The experts' FFN, [B, E, C, D] -> [B, E, C, D]."""
+    f = ACTIVATIONS[cfg.act]
+    up = torch.einsum("becd,edf->becf", xe, w_up)
+    if cfg.gated:
+        up = f(torch.einsum("becd,edf->becf", xe, rest[0])) * up
+    else:
+        up = f(up)
+    return torch.einsum("becf,efd->becd", up, rest[-1])
 
 
 def aux_load_balance_loss(params: Params, cfg: MoEConfig,

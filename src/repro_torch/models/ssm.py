@@ -22,6 +22,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.dtensor_ops import (cumsum, merge_heads, per_head,
+                                     split_dim, zero_pad)
 from repro_torch.kernels import ops
 from repro_torch.models.common import Params, dense_init, rms_norm
 
@@ -87,7 +89,7 @@ def ssd_chunked(x, dt, A, B, C, h0=None, chunk: int = 256):
         h0 = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
 
     dtc = dt.reshape(b, nc, q, h).float()
-    cum = torch.cumsum(dtc * A, dim=2)                  # [b,nc,q,h] f32
+    cum = cumsum(dtc * A, dim=2)                        # [b,nc,q,h] f32
     # the kernel's layout, once: chunk-major, so each chunk is contiguous
     xk = x.reshape(b, nc, q, h, p).float().permute(1, 0, 3, 2, 4) \
         .contiguous()                                   # [nc,b,h,q,p]
@@ -143,7 +145,7 @@ def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, bias: torch.Tensor
     cast to xbc's dtype.  xbc: [B,S,C]; w: [W,C]."""
     width = w.shape[0]
     s = xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    pad = zero_pad(xbc, 1, width - 1, 0)
     out = torch.zeros(xbc.shape, dtype=torch.float32, device=xbc.device)
     for i in range(width):
         out = out + pad[:, i:i + s, :].float() * w[i]
@@ -159,14 +161,14 @@ def mamba2_apply(params: Params, cfg: SSMConfig, x: torch.Tensor,
     proj = x @ params["in_proj"].to(x.dtype)
     z, xbc, dt_raw = _split_proj(cfg, proj)
     xbc = _causal_conv(xbc, params["conv_w"], params["conv_b"])
-    xs = xbc[..., :di].reshape(b, s, h, p)
+    xs = split_dim(xbc[..., :di], -1, h, p)
     B = xbc[..., di:di + n]
     C = xbc[..., di + n:]
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     y, hf = ssd_chunked(xs, dt, A, B, C, chunk=cfg.chunk)
     y = y + params["D"][None, None, :, None] * xs.float()
-    y = y.reshape(b, s, di).to(x.dtype)
+    y = merge_heads(y).to(x.dtype)                      # [b, s, di]
     y = y * F.silu(z.float()).to(x.dtype)
     y = rms_norm(y, params["norm"]["scale"])
     out = y @ params["out_proj"].to(x.dtype)
@@ -178,6 +180,16 @@ def mamba2_apply(params: Params, cfg: SSMConfig, x: torch.Tensor,
                 cfg, proj[:, -(cfg.conv_width - 1):, :])
         return out, (hf, conv_tail)
     return out
+
+
+def _decode_core(dt, A, B, C, xt, hprev, D):
+    """One token's state update and output, per batch row and head:
+    (y [b,h,p], h_new [b,h,p,n]), f32."""
+    a = torch.exp(dt * A)                                       # [b,h]
+    dBx = torch.einsum("bh,bn,bhp->bhpn", dt, B.float(), xt.float())
+    hnew = a[..., None, None] * hprev + dBx
+    y = torch.einsum("bn,bhpn->bhp", C.float(), hnew)
+    return y + D[None, :, None] * xt.float(), hnew
 
 
 def mamba2_decode(params: Params, cfg: SSMConfig, x: torch.Tensor,
@@ -192,17 +204,16 @@ def mamba2_decode(params: Params, cfg: SSMConfig, x: torch.Tensor,
     window = torch.cat([conv_buf.to(x.dtype), xbc_new], dim=1)
     acc = torch.einsum("bwc,wc->bc", window.float(), params["conv_w"].float())
     xbc = F.silu(acc + params["conv_b"])[:, None, :].to(x.dtype)
-    xt = xbc[..., :di].reshape(b, 1, h, p)[:, 0]
+    xt = split_dim(xbc[..., :di], -1, h, p)[:, 0]
     B = xbc[..., di:di + n][:, 0]
     C = xbc[..., di + n:][:, 0]
     dt = F.softplus(dt_raw.float()[:, 0] + params["dt_bias"])
     A = -torch.exp(params["A_log"])
-    a = torch.exp(dt * A)                                       # [b,h]
-    dBx = torch.einsum("bh,bn,bhp->bhpn", dt, B.float(), xt.float())
-    hnew = a[..., None, None] * hprev + dBx
-    y = torch.einsum("bn,bhpn->bhp", C.float(), hnew)
-    y = y + params["D"][None, :, None] * xt.float()
-    y = y.reshape(b, 1, di).to(x.dtype)
+    y, hnew = per_head(_decode_core, xt, (dt, (0, 1)), (A, (None, 0)),
+                       (B, (0, None)), (C, (0, None)), (xt, (0, 1)),
+                       (hprev, (0, 1)), (params["D"], (None, 0)),
+                       outputs=2)
+    y = merge_heads(y)[:, None].to(x.dtype)             # [b, 1, di]
     y = y * F.silu(z.float()).to(x.dtype)
     y = rms_norm(y, params["norm"]["scale"])
     out = y @ params["out_proj"].to(x.dtype)

@@ -68,11 +68,13 @@ def test_importing_the_port_loads_no_jax():
 
 
 @pytest.mark.parametrize("sub", ["kernels", "memory", "models", "launch",
-                                 "core"])
+                                 "core", "runtime", "dtensor_ops.py"])
 def test_no_try_on_the_kernel_path(sub):
     """A failed build or launch raises; nothing catches it and runs the
     plain version instead."""
-    for path in sorted((PORT / sub).rglob("*.py")):
+    paths = [PORT / sub] if sub.endswith(".py") else \
+        sorted((PORT / sub).rglob("*.py"))
+    for path in paths:
         tree = ast.parse(path.read_text())
         tries = [n.lineno for n in ast.walk(tree) if isinstance(n, ast.Try)]
         assert not tries, f"{path.relative_to(ROOT)} has try at {tries}"
@@ -90,4 +92,16 @@ def test_the_timing_backend_modules_are_scanned():
                  "core/dse/runner.py", "core/dse/ratio.py",
                  "core/dse/surrogate.py", "core/dse/_surrogate_coef.py",
                  "core/locality.py", "kernels/cycle_lanes.py"):
+        assert name in files, name
+
+
+def test_the_mesh_modules_are_scanned():
+    """The mesh-bound group's modules are among the files the import
+    scan reads and the ``try`` scan walks."""
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    for name in ("launch/mesh.py", "launch/sharding.py", "launch/specs.py",
+                 "launch/roofline.py", "launch/dryrun.py",
+                 "runtime/pipeline.py", "runtime/compressed_sync.py",
+                 "dtensor_ops.py"):
         assert name in files, name
