@@ -251,10 +251,23 @@ fails:
    ``DRYRUN_STATE_BYTES``, the reference dry run's values, which
    ``tests/test_torch_sharding.py`` holds these constants to; the
    dominant term and the trace seconds printed.
+15. the autotuner: ``autotune.tune`` over ``standard_problems`` (the
+   reference's six small shapes and the main path's four: the gather of
+   phase 2, the decode of phase 3, the SSD chunk of phase 5 and
+   zamba2-2.7b's) into a dict, never into the repo's table; every
+   candidate's output held against the plain version before its time
+   counts; per problem the candidate count, the default's and the
+   chosen configuration's us.  The checked-in table must have an entry
+   for each main-path problem under this card's name, phases 2, 3 and 5
+   must have launched with the table's configuration, which must read
+   no slower than the default by more than 3% in this run, and no
+   kernel instantiation may spill.
 
 Every time is a median of device time between CUDA events (see
 ``time_ms``).  It then prints the ``kernels`` JSON line (kernel, plain,
-library and bound times), and last ``{"ok": true, "device": {...}}``.  It exits
+library and bound times; for the three tuned kernels the launch
+``config`` and, where it is not the default, the default's time in this
+run, ``default_ms``), and last ``{"ok": true, "device": {...}}``.  It exits
 non-zero, printing no result, when there is no CUDA device or the
 package is missing.
 """
@@ -2748,6 +2761,68 @@ def mesh_phase(dev: torch.device, kernels: dict) -> dict:
             "mesh_plain_step_ms": pl_med, "pipeline_launches": pipe_launches}
 
 
+def autotune_phase(dev: torch.device, launched: dict) -> dict:
+    """Phase 15: ``autotune.tune`` over ``standard_problems`` into a
+    dict (the repo's table is read, never written).  Returns, by kernel,
+    phases 2, 3 and 5's problem: the table's configuration, its us and
+    the default's in this run."""
+    from repro_torch.kernels import _build, autotune
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    name = torch.cuda.get_device_name(dev)
+    _, table = autotune.read_table()
+    entries, main_path, n_cands = {}, {}, 0
+    for label, kernel, args, dims in autotune.standard_problems(dev):
+        t0 = time.perf_counter()
+        entry = autotune.tune(kernel, args, dims, entries=entries)
+        n_cands += len(entry["swept"])
+        best = min(entry["swept"], key=lambda r: r["us"])
+        print(f"autotune {label} ({kernel}, {name}): "
+              f"{len(entry['swept'])} candidates, each held to the plain "
+              f"version; default {entry['default']} "
+              f"{entry['default_us']:.3f} us; fastest {best['config']} "
+              f"{best['us']:.3f} us; chosen {entry['config']} "
+              f"{entry['us']:.3f} us ({time.perf_counter() - t0:.1f} s)")
+        if label not in autotune.MAIN_PATH:
+            continue
+        key = autotune.shape_key(kernel, name, **dims)
+        check(key in table, f"the checked-in table has no entry {key!r}")
+        cfg = dict(autotune.get_config(kernel, name, **dims))
+        rows = {json.dumps(r["config"], sort_keys=True): r["us"]
+                for r in entry["swept"]}
+        tuned_us = rows[json.dumps(cfg, sort_keys=True)]
+        print(f"autotune {label}: the table's {cfg} {tuned_us:.3f} us, "
+              f"the default {entry['default']} {entry['default_us']:.3f} "
+              f"us in this run ({tuned_us / entry['default_us']:.4f}x); "
+              f"tuned at {table[key]['us']:.3f} against "
+              f"{table[key]['default_us']:.3f} us")
+        check(tuned_us <= (1 + autotune.MARGIN) * entry["default_us"],
+              f"{label}: the table's configuration reads {tuned_us:.3f} "
+              f"us, over the default's {entry['default_us']:.3f} us by "
+              f"more than {autotune.MARGIN:.0%}")
+        main_path[label] = {"kernel": kernel, "config": cfg,
+                            "us": tuned_us, "default": entry["default"],
+                            "default_us": entry["default_us"]}
+        del args
+    tuned = {}
+    for label, phase in (("gather qwen3-1.7b", 2), ("decode_32k", 3),
+                         ("ssd mamba2-130m", 5)):
+        row = tuned[main_path[label]["kernel"]] = main_path[label]
+        check(launched[row["kernel"]] == row["config"],
+              f"phase {phase} launched {row['kernel']} with "
+              f"{launched[row['kernel']]}, the table says {row['config']}")
+    for lib, names, what in (("amm_gather", ("amm_gather_kernel",),
+                              "gather"),
+                             ("banked_kv_decode", ("kv_split", "kv_combine"),
+                              "decode"),
+                             ("ssd_scan", ("ssd_",), "SSD")):
+        check_spills(_build.ptxas_report(lib), names, what)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s, {n_cands} "
+          "candidates")
+    return tuned
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2762,7 +2837,7 @@ def main() -> int:
     shutil.rmtree(REPO / "build" / "trace_cache", ignore_errors=True)
     os.environ["REPRO_CACHE_DIR"] = str(REPO / "build" / "trace_cache")
     from repro_torch.configs import SHAPES, get_arch
-    from repro_torch.kernels import _build, pack_amm_banks
+    from repro_torch.kernels import _build, autotune, pack_amm_banks
     from repro_torch.kernels.amm_gather import (amm_gather_u32,
                                                 amm_gather_u32_plain)
     from repro_torch.kernels.banked_kv_decode import (
@@ -2787,10 +2862,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(args.seed)
 
     # ---- 1. card and build ------------------------------------------
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    card = autotune.card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     build_s = _build.build_all()
@@ -2850,6 +2922,7 @@ def main() -> int:
     g_bound_direct, _ = bound_ms(GATHER_IDS * width * 2
                                  + distinct * width * 2 + GATHER_IDS * 4)
     g_ms = time_ms(lambda: amm_gather_u32(banks, parity, idx))
+    launched = {"amm_gather": dict(amm_gather_u32.config)}
     # the same with the L2 flushed before each run (a write of twice its
     # 50 MB), as the lookup finds it after rebuilding the parity plane
     flush = torch.empty(2 * L2_BYTES // 4, dtype=torch.int32, device=dev)
@@ -2858,6 +2931,7 @@ def main() -> int:
     del flush
     g_plain = time_ms(lambda: amm_gather_u32_plain(banks, parity, idx), 5)
     g_lib = time_ms(lambda: table[idx])
+    print(f"gather launch configuration: {launched['amm_gather']}")
     print(f"gather [{vocab}, {width}] bf16 x {GATHER_IDS} ids "
           f"({distinct} distinct), {GATHER_BANKS} banks: bit-equal; "
           f"kernel {g_ms:.4f} ms, plain {g_plain:.4f} ms, "
@@ -2932,12 +3006,14 @@ def main() -> int:
     check(bool(torch.all(got[0] == 0)), "bf16 empty row is not 0")
     del got, want
     kv_ms = time_ms(lambda: banked_kv_decode(q, kb, vb, lens))
+    launched["kv_decode"] = dict(banked_kv_decode.config)
     kv_plain = time_ms(lambda: banked_kv_decode_plain(q, kb, vb, lens), 3, 1)
     valid = int(lens.sum().item())
     kv_bytes = valid * hkv * hd * 2 * 2
     kv_bound, kv_by = bound_ms(kv_bytes + 2 * q.numel() * 2 + batch * 4,
                                valid * hq * hd * 4)
-    tile, split = kernel_split(hd, 2, sb)
+    tile = kernel_split(hd, 2, sb)[0]
+    split = launched["kv_decode"]["split_len"]
     n_splits = nb * (sb // split)
     busy = int(((lens.long() + split - 1) // split).sum().item()) * hkv
     kv_prof, _ = device_profile(lambda: banked_kv_decode(q, kb, vb, lens),
@@ -2964,6 +3040,7 @@ def main() -> int:
           f"max err {f32_err:.3g} of 1e-5); "
           f"kernel {kv_ms:.4f} ms, plain {kv_plain:.4f} ms, "
           f"sdpa {kv_lib:.4f} ms, bound {kv_bound:.4f} ms")
+    print(f"kv_decode launch configuration: {launched['kv_decode']}")
     print(f"kv_decode split design: tile {tile} positions, split {split} "
           f"positions, {n_splits} splits a row, {batch * hkv * n_splits} "
           f"split CTAs of which {busy} non-empty; {kv_bytes / 1e9:.4f} GB "
@@ -3059,6 +3136,7 @@ def main() -> int:
     check(torch.equal(yb, yb.to(torch.bfloat16).float()),
           "y of bf16 x is not rounded through bf16")
     ssd_ms = time_ms(lambda: ssd_chunk(*ssd_in))
+    launched["ssd_chunk"] = dict(ssd_chunk_step.config)
     ssd_plain = time_ms(lambda: ssd_chunk_step_plain(*ssd_in))
     ssd_flops, ssd_bytes = ssd_work(sb, sh, sq, sp, sn)
     ssd_bound_f32, ssd_by_f32 = bound_ms(ssd_bytes, ssd_flops)
@@ -3073,6 +3151,7 @@ def main() -> int:
           f"{ssd_bound / ssd_ms:.1%} of it; the f32 CUDA-core bound is "
           f"{ssd_bound_f32:.4f} ms ({ssd_by_f32}); no single PyTorch call "
           f"computes this function, so library_ms is null")
+    print(f"ssd launch configuration: {launched['ssd_chunk']}")
     tiles = tile_counts(sb, sh, sq, sp, sn, ssd_kernel_tile())
     ssd_prof, _ = device_profile(lambda: ssd_chunk(*ssd_in),
                                  ("ssd_cb_kernel", "ssd_y_kernel",
@@ -3241,27 +3320,39 @@ def main() -> int:
         "amm_gather": amm_gather_u32, "banked_kv_decode": banked_kv_decode,
         "ssd_scan": ssd_chunk_step, "cycle_lanes": cycle_lanes}))
 
+    # ---- 15. the autotuner ------------------------------------------
+    tuned = autotune_phase(dev, launched)
+
+    def tuned_keys(kernel: str) -> dict:
+        row = tuned[kernel]
+        return {"config": row["config"]} | (
+            {} if row["config"] == row["default"]
+            else {"default_ms": row["default_us"] / 1e3})
+
     kernels = [{
         "name": "amm_gather", "route": "cuda",
         "source": "src/repro_torch/csrc/amm_gather.cu",
         "replaces": "src/repro/kernels/amm_gather.py:47",
         "launches": launches["amm_gather"], "max_abs_err": gather_err,
         "ms": g_ms, "kernel_ms": g_ms, "plain_ms": g_plain, "bound_ms": g_bound,
-        "bound_by": g_by, "library_ms": g_lib}, {
+        "bound_by": g_by, "library_ms": g_lib,
+        **tuned_keys("amm_gather")}, {
         "name": "banked_kv_decode", "route": "cuda",
         "source": "src/repro_torch/csrc/banked_kv_decode.cu",
         "replaces": "src/repro/kernels/banked_kv_decode.py:74",
         "launches": launches["banked_kv_decode"], "max_abs_err": kv_err,
         "ms": kv_ms, "kernel_ms": kv_ms, "plain_ms": kv_plain, "bound_ms": kv_bound,
-        "bound_by": kv_by, "library_ms": kv_lib}, {
+        "bound_by": kv_by, "library_ms": kv_lib,
+        **tuned_keys("kv_decode")}, {
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:58",
         "launches": serve_launches["ssd_scan"], "max_abs_err": ssd_err,
         "ms": ssd_ms, "kernel_ms": ssd_ms, "plain_ms": ssd_plain,
         "bound_ms": ssd_bound, "bound_by": ssd_by, "library_ms": None,
-        "zamba2_prefill": zamba2_ssd, **train_ssd},
-        schedule_kernel]
+        "zamba2_prefill": zamba2_ssd, **train_ssd,
+        **tuned_keys("ssd_chunk")},
+        {**schedule_kernel, "config": None}]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

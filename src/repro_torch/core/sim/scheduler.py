@@ -2,7 +2,7 @@
 configuration and result types (copies of the JAX package's
 ``core/sim/scheduler.py:60-90``) and ``schedule``, which runs the
 batched timing backend (``core/sim/batched_cycle.py``) on a batch of
-one design.
+one design, and ``schedule_events``, the same with its event log.
 
 'The cycle-accurate simulator schedules the data flow graph [...] The
 DAG allows multiple accesses and the scheduler then issues the number of
@@ -17,6 +17,7 @@ import dataclasses
 
 from repro_torch.core.amm.spec import AMMSpec
 from repro_torch.core.sim.arbiter import STALL_KEYS
+from repro_torch.core.sim.events import EventLog
 
 
 @dataclasses.dataclass
@@ -59,3 +60,16 @@ def schedule(tr, cfg: ScheduleConfig, *, device=None) -> ScheduleResult:
     its plain version."""
     from repro_torch.core.sim.batched_cycle import schedule_one
     return schedule_one(tr, cfg, device=device)
+
+
+def schedule_events(tr, cfg: ScheduleConfig, *, device=None
+                    ) -> "tuple[ScheduleResult, EventLog]":
+    """``schedule`` with issue-event logging: the (unchanged, recording
+    never influences an arbitration decision) result and the
+    node-indexed :class:`~repro_torch.core.sim.events.EventLog`, from the
+    recording variant of the batched engine on a batch of one.
+    ``device`` as for ``schedule``."""
+    from repro_torch.core.sim.batched_cycle import schedule_batched
+    (res,), (log,) = schedule_batched(tr, [cfg], device=device,
+                                      collect_events=True)
+    return res, log

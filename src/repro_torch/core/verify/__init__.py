@@ -84,18 +84,16 @@ def check_schedule(tr, cfg, *, device=None) -> CheckReport:
     """Schedule ``tr`` under ``cfg`` with event logging and validate.
 
     ``tr`` may be a Trace or an already-prepared PreparedTrace.  The
-    schedule is ``schedule_batched(..., collect_events=True)`` on a
-    batch of one: ``device=None`` runs the ``cycle_lanes`` kernel on the
-    CUDA device, ``device="cpu"`` its plain version; the report's
-    ``backend`` names the device.  Returns the :class:`CheckReport`;
+    schedule is ``core.sim.schedule_events``: ``device=None`` runs the
+    ``cycle_lanes`` kernel on the CUDA device, ``device="cpu"`` its
+    plain version; the report's ``backend`` names the device.  Returns the :class:`CheckReport`;
     callers that want an exception on failure use
     ``report.raise_if_failed()``.
     """
-    from repro_torch.core.sim.batched_cycle import schedule_batched
+    from repro_torch.core.sim.scheduler import schedule_events
     from repro_torch.device import resolve_device
 
     pt = prepare_trace(tr)
     dev = resolve_device(device)
-    (res,), (events,) = schedule_batched(pt, [cfg], device=dev,
-                                         collect_events=True)
+    res, events = schedule_events(pt, cfg, device=dev)
     return verify_result(pt, cfg, res, events, backend=str(dev))

@@ -26,9 +26,12 @@
 // Design.  One warp serves a pair of requests, the even slot 2k and the
 // odd slot 2k + 1, so every warp reads the same NB + 1 rows and writes
 // two (a warp per request left the even warps idle while the odd ones
-// read NB rows).  Its 32 lanes move the rows as words of 16 bytes (or 8,
-// 4, 2 bytes when the row pitch or a base address is not 16-byte
-// aligned: the host picks the widest word that divides both).  A lane
+// read NB rows).  A CTA holds ``pairs`` such warps (1, 2, 4, 8 or 16, a
+// launch argument: the JAX block_n is 2 x pairs ids; the default is 4,
+// the autotuner's table may pick another).  Its 32 lanes move the rows
+// as words of 16, 8, 4 or 2 bytes, also a launch argument: any width
+// that divides the row pitch and every base address (the default is the
+// widest such word).  A lane
 // issues the direct word, the parity word and the bank words four banks
 // at a time before their XORs, so up to six loads of 16 bytes are in
 // flight per lane.  An instantiation per bank count, with all NB loads of
@@ -61,7 +64,7 @@ __device__ __forceinline__ uint16_t word_xor(uint16_t a, uint16_t b) {
   return static_cast<uint16_t>(a ^ b);
 }
 
-constexpr int kWarpsPerBlock = 4;   // 4 pairs = 8 requests a CTA
+constexpr int kMaxPairs = 16;       // warps (request pairs) a CTA at most
 constexpr int kBankBatch = 4;       // bank loads a lane issues together
 
 // acc XOR the banks j != skip at one word, the loads of each batch of
@@ -85,7 +88,7 @@ __device__ __forceinline__ W xor_others(const W* __restrict__ row0,
 }
 
 template <typename W>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kMaxPairs * 32)
 amm_gather_kernel(const W* __restrict__ banks, const W* __restrict__ parity,
                   const int32_t* __restrict__ idx, W* __restrict__ out,
                   int64_t n, int n_banks, uint32_t rows, uint32_t words) {
@@ -120,12 +123,12 @@ amm_gather_kernel(const W* __restrict__ banks, const W* __restrict__ parity,
 template <typename W>
 int launch(const void* banks, const void* parity, const void* idx, void* out,
            int64_t n, int n_banks, uint32_t rows, int64_t row_bytes,
-           cudaStream_t stream) {
+           int pairs, cudaStream_t stream) {
   const auto words = static_cast<uint32_t>(row_bytes / sizeof(W));
-  const int64_t pairs = (n + 1) / 2;
-  const int64_t blocks = (pairs + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  amm_gather_kernel<W><<<static_cast<unsigned>(blocks), kWarpsPerBlock * 32,
-                         0, stream>>>(
+  const int64_t n_pairs = (n + 1) / 2;
+  const int64_t blocks = (n_pairs + pairs - 1) / pairs;
+  amm_gather_kernel<W><<<static_cast<unsigned>(blocks), pairs * 32, 0,
+                         stream>>>(
       static_cast<const W*>(banks), static_cast<const W*>(parity),
       static_cast<const int32_t*>(idx), static_cast<W*>(out), n, n_banks,
       rows, words);
@@ -138,27 +141,37 @@ extern "C" {
 
 // banks: [n_banks, rows, row_bytes] bytes; parity: [rows, row_bytes];
 // idx: [n] int32; out: [n, row_bytes].  word_bytes is 16, 8, 4 or 2 and
-// divides row_bytes and every base address.  Returns cudaGetLastError().
+// divides row_bytes and every base address; pairs (warps a CTA) is 1, 2,
+// 4, 8 or 16.  Any other value returns cudaErrorInvalidValue.  Returns
+// cudaGetLastError().
 int amm_gather_launch(const void* banks, const void* parity, const void* idx,
                       void* out, long long n, long long n_banks,
                       long long rows, long long row_bytes, int word_bytes,
-                      void* stream) {
+                      int pairs, void* stream) {
+  if (pairs < 1 || pairs > kMaxPairs || (pairs & (pairs - 1)) != 0 ||
+      (word_bytes != 16 && word_bytes != 8 && word_bytes != 4 &&
+       word_bytes != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   if (n_banks < 1 || rows < 1 || rows > INT32_MAX ||
-      row_bytes / word_bytes > UINT32_MAX)
+      row_bytes % word_bytes != 0 || row_bytes / word_bytes > UINT32_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int nb = static_cast<int>(n_banks);
   const auto r = static_cast<uint32_t>(rows);
   switch (word_bytes) {
     case 16:
-      return launch<uint4>(banks, parity, idx, out, n, nb, r, row_bytes, s);
+      return launch<uint4>(banks, parity, idx, out, n, nb, r, row_bytes,
+                           pairs, s);
     case 8:
-      return launch<uint2>(banks, parity, idx, out, n, nb, r, row_bytes, s);
+      return launch<uint2>(banks, parity, idx, out, n, nb, r, row_bytes,
+                           pairs, s);
     case 4:
-      return launch<uint32_t>(banks, parity, idx, out, n, nb, r, row_bytes, s);
+      return launch<uint32_t>(banks, parity, idx, out, n, nb, r,
+                              row_bytes, pairs, s);
     case 2:
-      return launch<uint16_t>(banks, parity, idx, out, n, nb, r, row_bytes, s);
+      return launch<uint16_t>(banks, parity, idx, out, n, nb, r,
+                              row_bytes, pairs, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

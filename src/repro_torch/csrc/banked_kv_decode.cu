@@ -26,10 +26,10 @@
 // 1. kv_split_kernel: one CTA of 128 threads per (batch row, kv head,
 //    split, head block).  A split is a run of split_len positions inside
 //    one bank (the whole bank or an equal sub-division of it whose length
-//    is a multiple of the tile; the wrapper's _split_len chooses it), so
-//    each bank is still read as an independent port.  A split that
-//    starts at or past lengths[b] exits at once, and the last non-empty
-//    split stops at the length.  At decode_32k (SB 4096, split 1024) that
+//    is a multiple of the tile; the autotuner's table or its default
+//    chooses it), so each bank is still read as an independent port.  A
+//    split that starts at or past lengths[b] exits at once, and the last
+//    non-empty split stops at the length.  At decode_32k (SB 4096, split 1024) that
 //    is 32768 CTAs, half of them empty, each streaming at most 512 KB:
 //    the row-length imbalance of one CTA per row becomes a tail of at
 //    most one split.
@@ -62,12 +62,15 @@
 //    groups' states are merged through shared memory into (m, l, acc),
 //    unnormalised, in the workspace.
 //
-//    Registers: the kernel is templated on the head block kHB, the group
-//    rounded up to a power of two and capped at 4 (1, 2, 4): a lane holds
-//    kHB * 8 q values and kHB * 8 accumulators.  Groups above 4 (8, 12,
-//    16) run ceil(group / 4) head blocks as neighbouring CTAs that read
-//    the same tiles, the second and later time mostly from L2; holding 16
-//    heads in one CTA would need 256 registers a lane for q and acc alone.
+//    Registers: the kernel is templated on the head block kHB (1, 2 or
+//    4, a launch argument; the default is the group rounded up to a power
+//    of two and capped at 4, and the autotuner's table may pick another):
+//    a lane holds kHB * 8 q values and kHB * 8 accumulators.  A group
+//    larger than the head block (8, 12, 16 at the default) runs
+//    ceil(group / kHB) head blocks as neighbouring CTAs that read the same
+//    tiles, the second and later time mostly from L2; holding 16 heads in
+//    one CTA would need 256 registers a lane for q and acc alone.  Heads
+//    of a block past the group are masked out.
 //
 // 2. kv_combine_kernel: one warp per (batch row, query head) merges the
 //    row's non-empty splits in position order: m = max m_s, l = sum l_s
@@ -541,8 +544,7 @@ template <typename T>
 int launch(const void* q, const void* k, const void* v, const void* lengths,
            void* out, float* workspace, long long batch, int hkv, int group,
            int n_banks, long long bank_len, long long split_len, int dim,
-           float scale, int vec, cudaStream_t stream) {
-  const int head_block = group <= 1 ? 1 : group <= 2 ? 2 : kMaxHeadBlock;
+           float scale, int head_block, int vec, cudaStream_t stream) {
   SplitArgs args;
   args.hkv = hkv;
   args.group = group;
@@ -567,9 +569,12 @@ int launch(const void* q, const void* k, const void* v, const void* lengths,
     case 2:
       code = launch_split<T, 2>(bulk, q, k, v, lengths, args, g, stream);
       break;
-    default:
+    case kMaxHeadBlock:
       code = launch_split<T, kMaxHeadBlock>(bulk, q, k, v, lengths, args, g,
                                             stream);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   if (code != 0) return code;
   const unsigned cgrid =
@@ -590,16 +595,20 @@ extern "C" {
 // n_splits * (dim + 2) floats, n_splits = n_banks * bank_len / split_len.
 // split_len divides bank_len and is a multiple of kv_decode_tile(dim,
 // itemsize) unless it is the whole bank.  dtype 0 = float32, 1 = bfloat16.
-// vec = 1 when dim * itemsize is a multiple of 16 and k and v are 16-byte
-// aligned (bulk copies), else 0 (plain loads).  Needs group <=
-// kv_decode_max_group() and dim <= kv_decode_max_dim(); otherwise returns
-// cudaErrorInvalidValue.  Returns cudaGetLastError() after the second
-// launch.
+// head_block (query heads a split CTA) is 1, 2 or 4.  vec = 1 (bulk
+// copies) needs dim * itemsize a multiple of 16 and k and v 16-byte
+// aligned; vec = 0 takes plain loads.  Needs group <= kv_decode_max_group()
+// and dim <= kv_decode_max_dim(); otherwise, or on any other head_block,
+// returns cudaErrorInvalidValue.  Returns cudaGetLastError() after the
+// second launch.
 int kv_decode_launch(const void* q, const void* k, const void* v,
                      const void* lengths, void* out, void* workspace,
                      long long batch, int hkv, int group, int n_banks,
                      long long bank_len, long long split_len, int dim,
-                     float scale, int dtype, int vec, void* stream) {
+                     float scale, int dtype, int head_block, int vec,
+                     void* stream) {
+  if (head_block != 1 && head_block != 2 && head_block != kMaxHeadBlock)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (batch == 0 || hkv == 0) return 0;
   if (group < 1 || group > kMaxGroup || dim < 1 || dim > kMaxDim ||
       n_banks < 1 || bank_len < 1 || split_len < 1 ||
@@ -615,11 +624,12 @@ int kv_decode_launch(const void* q, const void* k, const void* v,
   switch (dtype) {
     case 0:
       return launch<float>(q, k, v, lengths, out, ws, batch, hkv, group,
-                           n_banks, bank_len, split_len, dim, scale, vec, s);
+                           n_banks, bank_len, split_len, dim, scale,
+                           head_block, vec, s);
     case 1:
       return launch<__nv_bfloat16>(q, k, v, lengths, out, ws, batch, hkv,
                                    group, n_banks, bank_len, split_len, dim,
-                                   scale, vec, s);
+                                   scale, head_block, vec, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

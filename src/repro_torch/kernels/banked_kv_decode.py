@@ -12,9 +12,13 @@ length 0 decodes to zeros rather than NaN.
 ``banked_kv_decode`` launches ``csrc/banked_kv_decode.cu`` on CUDA
 tensors and runs ``banked_kv_decode_plain``, the same bank-by-bank
 recurrence in PyTorch, on CPU tensors.  The CUDA kernel splits every
-bank into runs of ``_split_len`` positions, scores each run in its own
-CTA into an f32 workspace, and merges the runs of a row in a second
-kernel (flash-decoding).
+bank into runs of ``split_len`` positions, scores each run in its own
+CTA (``head_block`` query heads a CTA, K/V staged by bulk copies or
+plain loads) into an f32 workspace, and merges the runs of a row in a
+second kernel (flash-decoding).  The three come from the autotuner's
+table unless given (``autotune.resolve``); its default split is
+``autotune.split_len`` (at decode_32k, banks of 4096 positions, four
+splits a bank and 32768 CTAs for the step).
 """
 from __future__ import annotations
 
@@ -23,26 +27,9 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# positions a split aims at: at decode_32k (banks of 4096 positions)
-# four splits a bank, 32768 CTAs for the step
-SPLIT_TARGET = 1024
-
-
-def _split_len(bank_len: int, tile: int) -> int:
-    """Positions in one split: the whole bank when it holds at most
-    ``SPLIT_TARGET`` positions or is not a whole number of tiles, else
-    the longest equal sub-division of the bank that is a multiple of
-    the tile and at most ``SPLIT_TARGET`` long.  A split thus always
-    lies inside one bank, and the splits tile every bank exactly."""
-    if bank_len <= SPLIT_TARGET or bank_len % tile:
-        return bank_len
-    tiles = bank_len // tile
-    per_split = max(k for k in range(1, max(1, SPLIT_TARGET // tile) + 1)
-                    if tiles % k == 0)
-    return per_split * tile
 
 
 def banked_kv_decode_plain(q: torch.Tensor, k_banks: torch.Tensor,
@@ -84,7 +71,7 @@ def _launcher() -> tuple:
     fn.argtypes = [ctypes.c_void_p] * 6 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.kv_decode_tile.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.kv_decode_tile.restype = ctypes.c_int
@@ -97,21 +84,44 @@ def kernel_split(dim: int, itemsize: int, bank_len: int
                  ) -> "tuple[int, int]":
     """(tile, split): the CUDA kernel's positions a K/V tile for this
     head dim and item size, as the kernel reports them, and the split
-    length ``_split_len`` picks from it for banks of ``bank_len``."""
+    length ``autotune.split_len`` picks from it by default for banks of
+    ``bank_len``."""
     tile = _launcher()[0].kv_decode_tile(dim, itemsize)
-    return tile, _split_len(bank_len, tile)
+    return tile, autotune.split_len(bank_len, tile)
+
+
+def launch_dims(q: torch.Tensor, k_banks: torch.Tensor,
+                v_banks: torch.Tensor) -> "dict[str, int]":
+    """The autotuner's dims of a launch on the card: the shape, the item
+    size, the kernel's ``tile`` for this head dim and ``vec``, whether
+    bulk copies are legal (rows a multiple of 16 bytes, K and V 16-byte
+    aligned)."""
+    b, hq, d = q.shape
+    _, hkv, nb, sb, _ = k_banks.shape
+    itemsize = q.element_size()
+    vec = ((d * itemsize) % 16 == 0 and k_banks.data_ptr() % 16 == 0
+           and v_banks.data_ptr() % 16 == 0)
+    return dict(b=b, hq=hq, hkv=hkv, s=nb * sb, d=d, nb=nb,
+                itemsize=itemsize, tile=kernel_split(d, itemsize, sb)[0],
+                vec=int(vec))
 
 
 def banked_kv_decode(q: torch.Tensor, k_banks: torch.Tensor,
-                     v_banks: torch.Tensor, lengths: torch.Tensor
-                     ) -> torch.Tensor:
+                     v_banks: torch.Tensor, lengths: torch.Tensor, *,
+                     head_block: "int | None" = None,
+                     split_len: "int | None" = None,
+                     bulk: "int | None" = None) -> torch.Tensor:
     """q: [B, Hq, D]; k/v_banks: [B, Hkv, NB, SB, D]; lengths: [B]
     int32.  Returns [B, Hq, D] in q's dtype.  Hq must be a multiple of
     Hkv; query head ``h`` reads kv head ``h // (Hq // Hkv)``.
 
     A CUDA tensor launches the kernel pair, split and combine
-    (``banked_kv_decode.launches`` counts one per call); a CPU tensor
-    takes the plain version."""
+    (``banked_kv_decode.launches`` counts one per call,
+    ``banked_kv_decode.config`` holds the last call's configuration)
+    with ``head_block`` query heads a split CTA, splits of ``split_len``
+    positions and bulk copies when ``bulk`` is 1; each left None comes
+    from the autotuner's table, and one the kernel does not take raises.
+    A CPU tensor takes the plain version."""
     b, hq, d = q.shape
     _, hkv, nb, sb, _ = k_banks.shape
     if hq % hkv:
@@ -132,22 +142,27 @@ def banked_kv_decode(q: torch.Tensor, k_banks: torch.Tensor,
     _build.check_tensor("v_banks", v_banks, dev, (q.dtype,),
                         (b, hkv, nb, sb, d))
     _build.check_tensor("lengths", lengths, dev, (torch.int32,), (b,))
-    _, split = kernel_split(d, q.element_size(), sb)
+    cfg = autotune.resolve("kv_decode", dev,
+                           launch_dims(q, k_banks, v_banks),
+                           head_block=head_block, split_len=split_len,
+                           bulk=bulk)
+    split = cfg["split_len"]
     n_splits = nb * (sb // split)
     out = torch.empty_like(q)
     # per (row, query head, split): acc [D] then (m, l), f32
     work = torch.empty(b * hq * n_splits * (d + 2), dtype=torch.float32,
                        device=dev)
-    vec = ((d * q.element_size()) % 16 == 0 and k_banks.data_ptr() % 16 == 0
-           and v_banks.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         code = fn(q.data_ptr(), k_banks.data_ptr(), v_banks.data_ptr(),
                   lengths.data_ptr(), out.data_ptr(), work.data_ptr(), b,
                   hkv, group, nb, sb, split, d, 1.0 / (d ** 0.5),
-                  _DTYPE_CODE[q.dtype], int(vec), _build.stream_ptr(q))
+                  _DTYPE_CODE[q.dtype], cfg["head_block"], cfg["bulk"],
+                  _build.stream_ptr(q))
     _build.check_status(lib, code, "banked_kv_decode")
     banked_kv_decode.launches += 1
+    banked_kv_decode.config = cfg
     return out
 
 
 banked_kv_decode.launches = 0
+banked_kv_decode.config = None

@@ -81,3 +81,23 @@ def kv_decode_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     w = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     out = torch.einsum("bhgs,bhsd->bhgd", w, v.float())
     return out.reshape(b, hq, d).to(q.dtype)
+
+
+def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                  B: torch.Tensor, C: torch.Tensor, h_in: torch.Tensor
+                  ) -> "tuple[torch.Tensor, torch.Tensor]":
+    """Same contract as ``ssd_scan.ssd_chunk_step``, dense einsums in
+    f32 (no rounding of y or h_out through the inputs' dtypes)."""
+    x, dt, cum = x.float(), dt.float(), cum.float()
+    B, C, h_in = B.float(), C.float(), h_in.float()
+    pos = torch.arange(cum.shape[-1], device=cum.device)
+    la = torch.where(pos[:, None] >= pos[None, :],
+                     cum[..., :, None] - cum[..., None, :], -1e30)
+    decay = torch.exp(la)                                      # [b,h,i,j]
+    scores = torch.einsum("bin,bjn->bij", C, B)[:, None] * decay
+    y = torch.einsum("bhij,bhj,bhjp->bhip", scores, dt, x)
+    y = y + torch.einsum("bin,bhi,bhpn->bhip", C, torch.exp(cum), h_in)
+    tail = torch.exp(cum[..., -1:] - cum) * dt                 # [b,h,q]
+    h_out = torch.exp(cum[..., -1])[..., None, None] * h_in + torch.einsum(
+        "bhj,bhjp,bjn->bhpn", tail, x, B)
+    return y, h_out

@@ -17,7 +17,10 @@ tensors and runs ``ssd_chunk_step_plain`` on CPU tensors.  The kernel
 computes C B^T once a batch row into an f32 workspace of
 ``workspace_shape`` that the wrapper allocates, then y and h_out over
 square tiles of the edge the library reports (``ssd_chunk_tile``);
-``tile_counts`` gives the CTAs of each of its three launches.
+``tile_counts`` gives the CTAs of each of its three launches.  It stages
+its tiles in 16-byte copies (``vec`` 1, legal where ``_vec_copies``
+holds) or 4-byte ones (``vec`` 0), as the autotuner's table says unless
+given (``autotune.resolve``).
 
 ``SSDChunk`` is the autograd rule, on both devices: its forward is
 ``ssd_chunk_step`` (the kernel on the card, counted; the plain version
@@ -34,7 +37,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 
 FLOAT_DTYPES = (torch.float32, torch.bfloat16)
 MAX_GRID_YZ = 65535      # CUDA's limit on gridDim.y (heads), .z (batch)
@@ -111,14 +114,29 @@ def kernel_tile() -> int:
     return _launcher()[0].ssd_chunk_tile()
 
 
+def launch_dims(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
+                B: torch.Tensor, C: torch.Tensor, h_in: torch.Tensor
+                ) -> "dict[str, int]":
+    """The autotuner's dims of a launch on the f32 inputs: the shape and
+    ``vec``, whether 16-byte staging is legal (``_vec_copies``)."""
+    bt, h, q, p = x.shape
+    n = B.shape[-1]
+    return dict(bt=bt, h=h, q=q, p=p, n=n,
+                vec=int(_vec_copies(p, n, x, dt, cum, B, C, h_in)))
+
+
 def ssd_chunk_step(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
-                   B: torch.Tensor, C: torch.Tensor, h_in: torch.Tensor
+                   B: torch.Tensor, C: torch.Tensor, h_in: torch.Tensor, *,
+                   vec: "int | None" = None
                    ) -> "tuple[torch.Tensor, torch.Tensor]":
     """x: [Bt, H, Q, P]; dt/cum: [Bt, H, Q]; B/C: [Bt, Q, N];
     h_in: [Bt, H, P, N] -> (y [Bt, H, Q, P], h_out [Bt, H, P, N]), f32.
 
     A CUDA tensor launches the kernel (``ssd_chunk_step.launches`` counts
-    the launches); a CPU tensor takes the plain version."""
+    the launches, ``ssd_chunk_step.config`` holds the last launch's
+    configuration) with 16-byte staging when ``vec`` is 1; None takes the
+    autotuner's table, and a ``vec`` the kernel does not take raises.  A
+    CPU tensor takes the plain version."""
     if _build.dispatch(x, dt, cum, B, C, h_in) == "cpu":
         return ssd_chunk_step_plain(x, dt, cum, B, C, h_in)
     bt, h, q, p = x.shape
@@ -136,22 +154,24 @@ def ssd_chunk_step(x: torch.Tensor, dt: torch.Tensor, cum: torch.Tensor,
     _build.check_tensor("C", C, dev, FLOAT_DTYPES, (bt, q, n))
     _build.check_tensor("h_in", h_in, dev, FLOAT_DTYPES, (bt, h, p, n))
     ins = [t.float() for t in (x, dt, cum, B, C, h_in)]
+    cfg = autotune.resolve("ssd_chunk", dev, launch_dims(*ins), vec=vec)
     y = torch.empty((bt, h, q, p), dtype=torch.float32, device=dev)
     h_out = torch.empty((bt, h, p, n), dtype=torch.float32, device=dev)
     lib, fn = _launcher()
     ws = torch.empty(workspace_shape(bt, q, kernel_tile()),
                      dtype=torch.float32, device=dev)
-    vec = _vec_copies(p, n, *ins)
     with torch.cuda.device(dev):
         code = fn(*(t.data_ptr() for t in ins), y.data_ptr(),
-                  h_out.data_ptr(), ws.data_ptr(), bt, h, q, p, n, int(vec),
-                  _build.stream_ptr(x))
+                  h_out.data_ptr(), ws.data_ptr(), bt, h, q, p, n,
+                  cfg["vec"], _build.stream_ptr(x))
     _build.check_status(lib, code, "ssd_chunk_step")
     ssd_chunk_step.launches += 1
+    ssd_chunk_step.config = cfg
     return _round_through(y, x.dtype), _round_through(h_out, h_in.dtype)
 
 
 ssd_chunk_step.launches = 0
+ssd_chunk_step.config = None
 
 
 class SSDChunk(torch.autograd.Function):

@@ -17,7 +17,9 @@ chunk sums in f32 in another order than the plain version: atol 1e-4
 (the reference's SSD tolerance) + rtol 1e-5; with bf16 x both round y
 once to bf16, so y may differ by one bf16 step (rtol 2**-7).  The
 batched timing backend (``cycle_lanes``) is integer: the kernel equals
-its plain version exactly (results, remap maps, event logs).
+its plain version exactly (results, remap maps, event logs).  Every
+launch configuration the autotuner sweeps is held to the same gates
+(``autotune.holds``).
 """
 import importlib
 import math
@@ -28,6 +30,7 @@ import torch
 
 from repro_torch.kernels import (amm_gather, kv_decode, pack_amm_banks,
                                  ssd_chunk)
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import ssd_scan as ssd_mod
 from repro_torch.kernels.amm_gather import (amm_gather_u32,
                                             amm_gather_u32_plain)
@@ -44,6 +47,7 @@ from repro_torch.kernels.ref import amm_gather_replay_ref
 # the module, not the ``amm_gather`` function that ``repro_torch.kernels``
 # exports under the same name
 gather_mod = importlib.import_module("repro_torch.kernels.amm_gather")
+kv_mod = importlib.import_module("repro_torch.kernels.banked_kv_decode")
 
 
 @pytest.fixture
@@ -920,3 +924,161 @@ def test_run_torch_on_the_card_holds_to_numpy(cuda, bench):
     got = call()
     assert all(g.is_cuda for g in got)
     assert holds(bench, got, want)
+
+
+# ------------------------------------------------------------ autotune
+_WRAPPERS = {"amm_gather": amm_gather_u32, "kv_decode": banked_kv_decode,
+             "ssd_chunk": ssd_chunk_step}
+
+
+def _tune_problems(cuda):
+    """(kernel, args, dims) of small shapes whose candidates span every
+    launch parameter: gathers at 16-, 2- and 16-byte words (the last at
+    qwen3-1.7b's row); decodes of a group of 3 (head blocks 1, 2 and 4)
+    in f32 and bf16 with banks of 8 tiles; SSD chunks with and without
+    16-byte staging."""
+    g = _gen(40)
+    found = []
+    for word, d in ((torch.int32, 24), (torch.int16, 5), (torch.int16,
+                                                          2048)):
+        lo, hi = (-2**31, 2**31 - 1) if word == torch.int32 else \
+            (-2**15, 2**15)
+        banks = torch.randint(lo, hi, (3, 40, d), generator=g, device=cuda,
+                              dtype=word)
+        parity = torch.randint(lo, hi, (40, d), generator=g, device=cuda,
+                               dtype=word)
+        idx = torch.randint(0, 120, (77,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        args = (banks, parity, idx)
+        found.append(("amm_gather", args, gather_mod.launch_dims(*args)))
+    for dtype in (torch.float32, torch.bfloat16):
+        b, hq, hkv, s, d, nb = 3, 12, 4, 1024, 64, 2
+        q = torch.randn((b, hq, d), generator=g, device=cuda).to(dtype)
+        k = torch.randn((b, hkv, nb, s // nb, d), generator=g,
+                        device=cuda).to(dtype)
+        v = torch.randn((b, hkv, nb, s // nb, d), generator=g,
+                        device=cuda).to(dtype)
+        lens = torch.tensor([0, 700, s], dtype=torch.int32, device=cuda)
+        found.append(("kv_decode", (q, k, v, lens),
+                      kv_mod.launch_dims(q, k, v)))
+    for shape in ((2, 3, 40, 24, 20), (2, 3, 12, 8, 6)):
+        ins = _ssd_inputs(g, cuda, *shape)
+        found.append(("ssd_chunk", ins, ssd_mod.launch_dims(*ins)))
+    return found
+
+
+@pytest.fixture
+def planted_table(tmp_path):
+    yield tmp_path / "table.json"
+    autotune.load_table(refresh=True)
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_every_candidate_matches_plain(cuda, case):
+    kernel, args, dims = _tune_problems(cuda)[case]
+    want = autotune._plain(kernel, args)
+    wrapper = _WRAPPERS[kernel]
+    cands = autotune.candidates(kernel, **dims)
+    assert autotune.default_config(kernel, **dims) in cands
+    for cfg in cands:
+        before = wrapper.launches
+        got = wrapper(*args, **cfg)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        assert dict(wrapper.config) == cfg
+        assert autotune.holds(kernel, got, want, args), cfg
+
+
+def test_candidates_span_every_launch_parameter(cuda):
+    problems = _tune_problems(cuda)
+    seen = {}
+    for kernel, _, dims in problems:
+        for cfg in autotune.candidates(kernel, **dims):
+            for k, v in cfg.items():
+                seen.setdefault(k, set()).add(v)
+    assert seen["pairs"] == set(autotune.PAIRS)
+    assert seen["word_bytes"] == set(autotune.WORDS)
+    assert seen["head_block"] == set(autotune.HEAD_BLOCKS)
+    assert seen["split_len"] == {64, 128, 256, 512}
+    assert seen["bulk"] == seen["vec"] == {0, 1}
+
+
+def test_an_illegal_configuration_raises_on_card(cuda):
+    problems = _tune_problems(cuda)
+    bad = {0: [dict(pairs=3), dict(pairs=32), dict(word_bytes=32)],
+           1: [dict(word_bytes=4)],
+           3: [dict(head_block=3), dict(head_block=8), dict(split_len=100),
+               dict(split_len=32), dict(bulk=2)],
+           5: [dict(vec=2)], 6: [dict(vec=1)]}
+    for case, cfgs in bad.items():
+        kernel, args, _ = problems[case]
+        for cfg in cfgs:
+            before = _WRAPPERS[kernel].launches
+            with pytest.raises(ValueError, match="not legal"):
+                _WRAPPERS[kernel](*args, **cfg)
+            assert _WRAPPERS[kernel].launches == before
+    # the C entries refuse what the wrappers never pass
+    banks, parity, idx = problems[0][1]
+    out = torch.empty((77, 24), dtype=torch.int32, device=cuda)
+    lib, fn = gather_mod._launcher()
+    for word_bytes, pairs in ((16, 3), (16, 32), (3, 4), (32, 4)):
+        code = fn(banks.data_ptr(), parity.data_ptr(), idx.data_ptr(),
+                  out.data_ptr(), 77, 3, 40, 96, word_bytes, pairs,
+                  _build.stream_ptr(banks))
+        assert code == 1, (word_bytes, pairs)   # cudaErrorInvalidValue
+    q, k, v, lens = problems[3][1]
+    work = torch.empty(3 * 12 * 2 * 66, device=cuda)
+    lib, fn, _ = kv_mod._launcher()
+    for head_block in (0, 3, 8):
+        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+                  torch.empty_like(q).data_ptr(), work.data_ptr(), 3, 4, 3,
+                  2, 512, 512, 64, 0.125, 0, head_block, 1,
+                  _build.stream_ptr(q))
+        assert code == 1, head_block
+
+
+def test_wrappers_take_the_tables_configuration(cuda, planted_table):
+    """A planted entry under this card's name reaches the launch through
+    every wrapper and through ``ops``; a launch of another bucket takes
+    the default."""
+    name = torch.cuda.get_device_name(cuda)
+    problems = [_tune_problems(cuda)[i] for i in (0, 3, 5)]
+    entries, planted = {}, {}
+    for kernel, args, dims in problems:
+        cfg = autotune.candidates(kernel, **dims)[0]
+        assert cfg != autotune.default_config(kernel, **dims)
+        entries[autotune.shape_key(kernel, name, **dims)] = {"config": cfg}
+        planted[kernel] = cfg
+    autotune.save_table(entries, planted_table)
+    for kernel, args, dims in problems:
+        _WRAPPERS[kernel](*args)
+        assert dict(_WRAPPERS[kernel].config) == planted[kernel]
+    x, dt, cum, B, C, h_in = problems[2][1]
+    ssd_chunk(x, dt, cum, B, C, h_in)
+    assert dict(ssd_chunk_step.config) == planted["ssd_chunk"]
+    ins = _ssd_inputs(_gen(41), cuda, 2, 3, 80, 24, 20)   # another bucket
+    ssd_chunk(*ins)
+    assert dict(ssd_chunk_step.config) == {"vec": 1}
+
+
+@pytest.mark.parametrize("case", [0, 3, 5])
+def test_tune_on_the_card(cuda, case):
+    kernel, args, dims = _tune_problems(cuda)[case]
+    entries = {}
+    entry = autotune.tune(kernel, args, dims, repeat=3, entries=entries)
+    name = torch.cuda.get_device_name(cuda)
+    assert list(entries) == [autotune.shape_key(kernel, name, **dims)]
+    assert len(entry["swept"]) == len(autotune.candidates(kernel, **dims))
+    assert all(r["us"] > 0 for r in entry["swept"])
+    assert entry["us"] <= entry["default_us"]
+    assert autotune.is_legal(kernel, entry["config"], **dims)
+
+
+def test_kernels_spill_nothing_at_any_configuration(cuda):
+    for name, sym in (("amm_gather", "amm_gather_kernel"),
+                      ("banked_kv_decode", "kv_"), ("ssd_scan", "ssd_")):
+        _build.load(name)
+        rows = [r for r in _build.ptxas_report(name) if sym in r["name"]]
+        assert rows
+        assert all(r["spill_stores"] == 0 and r["spill_loads"] == 0
+                   for r in rows), rows

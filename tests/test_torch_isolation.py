@@ -1,5 +1,5 @@
 """The port stands alone: no module of ``repro_torch``, nor
-``chip_smoke.py`` or ``kernel_ab.py``, imports JAX or anything of the JAX package ``repro``,
+``chip_smoke.py``, ``kernel_ab.py`` or ``phase_ab.py``, imports JAX or anything of the JAX package ``repro``,
 and no kernel path falls back to a plain version through a ``try``.
 """
 import ast
@@ -15,10 +15,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 AB = ROOT / "kernel_ab.py"
+PHASE_AB = ROOT / "phase_ab.py"
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [SMOKE, AB]
+    return sorted(PORT.rglob("*.py")) + [SMOKE, AB, PHASE_AB]
 
 
 def _imported_roots(path: pathlib.Path):

@@ -25,7 +25,8 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import _build, amm_gather, kv_decode, pack_amm_banks
 from repro_torch.kernels import ref as torch_ref
 from repro_torch.kernels.amm_gather import _word_bytes, amm_gather_u32
-from repro_torch.kernels.banked_kv_decode import _split_len, banked_kv_decode
+from repro_torch.kernels.autotune import split_len as _split_len
+from repro_torch.kernels.banked_kv_decode import banked_kv_decode
 
 _NP_DTYPE = {"float32": np.float32, "bfloat16": jnp.bfloat16}
 _UINT = {2: np.uint16, 4: np.uint32}

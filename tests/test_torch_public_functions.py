@@ -1,0 +1,108 @@
+"""Three public functions of the port against the JAX package's, on the
+CPU, with the same numpy inputs:
+
+* ``core/amm/banked.py``: ``bank_of``, ``conflict_cycles`` and
+  ``conflict_cycles_grouped`` (the banking timing model), exact;
+* ``core/sim/scheduler.py::schedule_events`` (``device="cpu"``: the
+  plain lanes) against the reference's C loop
+  (``schedule_events(pt, cfg, backend="c")``): result and event log
+  equal;
+* ``kernels/ref.py::ssd_chunk_ref`` within the reference's SSD
+  tolerance, 1e-4.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from _torch_sched_util import (golden_configs, one_thread,  # noqa: F401
+                              ref_config)
+from repro.core.amm import banked as ref_banked
+from repro.core.bench import get_trace as ref_get_trace
+from repro.core.sim import prepare_trace as ref_prepare
+from repro.core.sim.scheduler import schedule_events as ref_schedule_events
+from repro.kernels import ref as jax_ref
+from repro_torch.core.amm import banked
+from repro_torch.core.sim import schedule_events
+from repro_torch.kernels import ref as torch_ref
+from repro_torch.kernels.ssd_scan import ssd_chunk_step_plain
+
+
+def _mask(kind, rng, shape):
+    if kind == "all":
+        return np.ones(shape, bool)
+    if kind == "none":
+        return np.zeros(shape, bool)
+    return rng.random(shape) < 0.5
+
+
+@pytest.mark.parametrize("mask", ["all", "none", "random"])
+@pytest.mark.parametrize("ports", [1, 2])
+@pytest.mark.parametrize("n_banks", [1, 3, 8])
+def test_conflict_cycles_match_jax(n_banks, ports, mask):
+    rng = np.random.default_rng(n_banks * 10 + ports)
+    addrs = rng.integers(0, 1 << 20, (24, 16)).astype(np.int32)
+    addrs[0] = 7                                  # every access one bank
+    addrs[1] = np.arange(16) * n_banks + 1        # one bank, strided
+    addrs[2] = np.arange(16)                      # cyclic, spread
+    masks = _mask(mask, rng, addrs.shape)
+    want = np.asarray(ref_banked.conflict_cycles_grouped(
+        jnp.asarray(addrs), jnp.asarray(masks), n_banks, ports))
+    got = banked.conflict_cycles_grouped(torch.from_numpy(addrs),
+                                         torch.from_numpy(masks), n_banks,
+                                         ports)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    for a, m in zip(addrs[:4], masks[:4]):
+        one = banked.conflict_cycles(torch.from_numpy(a),
+                                     torch.from_numpy(m), n_banks, ports)
+        assert int(one) == int(ref_banked.conflict_cycles(
+            jnp.asarray(a), jnp.asarray(m), n_banks, ports))
+    np.testing.assert_array_equal(
+        banked.bank_of(torch.from_numpy(addrs), n_banks).numpy(),
+        np.asarray(ref_banked.bank_of(jnp.asarray(addrs), n_banks)))
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("design", ["banked4", "hb_ntx-4R2W-b4",
+                                    "remap-2R2W"])
+def test_schedule_events_matches_reference_c_loop(design):
+    pt, rows, cfgs = golden_configs("paged_kv")
+    row, cfg = next((g, c) for g, c in zip(rows, cfgs)
+                    if g["design"] == design and g["unroll"] == 4)
+    res, log = schedule_events(pt, cfg, device="cpu")
+    rpt = ref_prepare(ref_get_trace("paged_kv"))
+    rres, rlog = ref_schedule_events(rpt, ref_config(rpt, cfg),
+                                     backend="c")
+    assert res.__dict__ == rres.__dict__
+    assert res.cycles == row["cycles"]
+    for f in ("cycle", "path", "resource", "slot"):
+        np.testing.assert_array_equal(getattr(log, f), getattr(rlog, f),
+                                      err_msg=f)
+    assert (log.cycle >= 0).all()
+
+
+@pytest.mark.parametrize("bt,h,q,p,n", [(1, 2, 8, 4, 4), (2, 3, 12, 8, 6),
+                                        (2, 4, 64, 16, 32)])
+def test_ssd_chunk_ref_matches_jax(bt, h, q, p, n):
+    rng = np.random.default_rng(q)
+    x = rng.standard_normal((bt, h, q, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.1, (bt, h, q)).astype(np.float32)
+    cum = np.cumsum(-dt * np.linspace(1, 4, h, dtype=np.float32)[None, :,
+                                                                  None],
+                    axis=-1).astype(np.float32)
+    B = rng.standard_normal((bt, q, n)).astype(np.float32)
+    C = rng.standard_normal((bt, q, n)).astype(np.float32)
+    h0 = rng.standard_normal((bt, h, p, n)).astype(np.float32)
+    ins = (x, dt, cum, B, C, h0)
+    want_y, want_h = (np.asarray(a) for a in jax_ref.ssd_chunk_ref(
+        *(jnp.asarray(a) for a in ins)))
+    got_y, got_h = torch_ref.ssd_chunk_ref(*(torch.from_numpy(a)
+                                             for a in ins))
+    assert got_y.dtype == got_h.dtype == torch.float32
+    np.testing.assert_allclose(got_y.numpy(), want_y, atol=1e-4, rtol=1e-4)
+    np.testing.assert_allclose(got_h.numpy(), want_h, atol=1e-4, rtol=1e-4)
+    plain_y, plain_h = ssd_chunk_step_plain(*(torch.from_numpy(a)
+                                              for a in ins))
+    torch.testing.assert_close(got_y, plain_y, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_h, plain_h, atol=1e-4, rtol=1e-4)
