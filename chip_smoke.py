@@ -213,13 +213,16 @@ fails:
    before (a) and read after it: (a) ``run_sweep_bench(name, full=True,
    prune="surrogate")`` for the 15 benchmarks over a fresh cache under
    ``build/``, exactly 15 ``cycle_lanes`` launches (the 12 calibrated
-   benchmarks' bands, the 3 serving benchmarks' exhaustive fallbacks),
-   each band the port's ``select_band`` of the grid, every point equal
-   to its golden row, the time/area front that of the 80 golden points;
-   per benchmark the band size, the launch's kernel ms against phase 8's
-   80-lane launch, its slowest lane (profiling instantiation) and the
-   time/power front's equality (information only), and the cold pass's
-   host seconds against phase 9's; (b) ``check=True`` on one pruned
+   benchmarks' bands under the front cap, the 3 serving benchmarks'
+   exhaustive fallbacks), each band the port's ``select_band`` of the
+   grid, the returned points exactly those the cap's rule
+   (``scheduler.front_capped``) keeps on the band's golden cycles (301
+   of 340, and the 240 fallback points), every point equal to its golden
+   row, the time/area front that of the 80 golden points; per benchmark
+   the band, the points kept and capped, the launch's kernel ms against
+   phase 8's 80-lane launch, its slowest lane (profiling instantiation)
+   and the time/power front's equality (information only), and the cold
+   pass's host seconds against phase 9's; (b) ``check=True`` on one pruned
    benchmark, 0 legality violations; (c) ``python -m
    repro_torch.core.dse.runner --bench md_knn --full --front-only``
    with and without ``--prune surrogate`` in subprocesses, each with a
@@ -1294,8 +1297,10 @@ def pruned_sweep(dev: torch.device, kernels: dict,
     """Phase 13: the surrogate-pruned sweep.  (a) the cold pass,
     ``run_sweep_bench(name, full=True, prune="surrogate")`` for the 15
     benchmarks over a fresh cache, one ``cycle_lanes`` launch a benchmark
-    (12 bands, 3 exhaustive fallbacks), every point equal to its golden
-    row, each band the port's ``select_band`` of the grid, the time/area
+    (12 bands under the front cap, 3 exhaustive fallbacks): each band the
+    port's ``select_band`` of the grid, the returned points exactly those
+    the front cap's rule keeps on the golden cycles (301 of the 340 band
+    points at full size), each equal to its golden row, the time/area
     front that of the 80 golden points; each band launch's kernel ms
     against phase 8's exhaustive launch, its slowest lane; (b) the audit
     of one pruned benchmark; (c) the CLI's ``--front-only`` rows with and
@@ -1315,8 +1320,11 @@ def pruned_sweep(dev: torch.device, kernels: dict,
     from repro_torch.core.dse.runner import SweepCache
     from repro_torch.core.dse.surrogate import CALIBRATED_BENCHES
     from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
+                                            _point_static_cost,
                                             schedule_config_for)
     from repro_torch.core.sim import prepare_trace
+    from repro_torch.core.sim.batched_cycle import front_eligible
+    from repro_torch.core.sim.scheduler import front_capped
     from repro_torch.kernels import ops
 
     t_phase = time.perf_counter()
@@ -1338,6 +1346,29 @@ def pruned_sweep(dev: torch.device, kernels: dict,
               f"({rank_ms:.1f} ms host clock to rank the grid)"
               + ("" if b in CALIBRATED_BENCHES else
                  "; not calibrated: the runner runs all 80"))
+    # the front cap's order of each band (evaluate_points': stable
+    # ascending area) and what its rule keeps on the golden cycles
+    order, lanes, kept = {}, {}, {}
+    for b in BENCHMARKS:
+        if b not in CALIBRATED_BENCHES:
+            kept[b] = band[b]
+            continue
+        stat = {i: _point_static_cost(schedule_config_for(pts[b], *grid[i]),
+                                      grid[i][1]) for i in band[b]}
+        order[b] = sorted(band[b], key=lambda i: stat[i][0])
+        lanes[b] = [schedule_config_for(pts[b], *grid[i]) for i in order[b]]
+        rule = front_capped([stat[i][0] for i in order[b]],
+                            [stat[i][1] for i in order[b]],
+                            [want[b][i].cycles for i in order[b]],
+                            lanes[b][0].max_cycles,
+                            front_eligible(pts[b], lanes[b]))
+        kept[b] = sorted(i for i, k in zip(order[b], rule) if k)
+    n_cal_band = sum(len(band[b]) for b in order)
+    n_cal_kept = sum(len(kept[b]) for b in order)
+    if full:
+        check((n_cal_kept, n_cal_band) == (301, 340),
+              f"the front cap's rule keeps {n_cal_kept} of {n_cal_band} band "
+              "points on the golden cycles, want 301 of 340")
 
     # (a) the cold pruned pass, each launch fenced by CUDA events
     spans = []
@@ -1365,10 +1396,11 @@ def pruned_sweep(dev: torch.device, kernels: dict,
           f"{n_band} band points")
     kernel_ms, fronts = {}, {}
     for (b, pts_b), (start, end) in zip(got.items(), spans):
-        expect = [want[b][i] for i in band[b]]
+        expect = [want[b][i] for i in kept[b]]
         check([(p.design, p.unroll) for p in pts_b]
-              == [(grid[i][0].label, grid[i][1]) for i in band[b]],
-              f"{b}: the pruned sweep's points are not its band")
+              == [(grid[i][0].label, grid[i][1]) for i in kept[b]],
+              f"{b}: the pruned sweep's points are not those the front "
+              "cap's rule keeps of its band")
         check(same_points(pts_b, expect),
               f"{b}: a pruned point differs from its golden row")
         for cost, key in (("area", lambda p: p.area_mm2),
@@ -1394,18 +1426,28 @@ def pruned_sweep(dev: torch.device, kernels: dict,
                 f"{'equal' if fronts[b, 'power'] else 'differs'} "
                 "(information only)")
         if b in CALIBRATED_BENCHES:
-            cfgs = [schedule_config_for(pts[b], *grid[i]) for i in band[b]]
-            split = lane_profile(pts[b], cfgs, dev)
-            dp, u = grid[band[b][split["lane"]]]
-            line += (f"; slowest lane {dp.label} u{u}, {split['cycles']} "
-                     f"cycles, deferral scan {split['shares'][3]:.1%} of "
-                     "its SM clocks")
+            line += (f"; front cap: band {len(band[b])}, kept "
+                     f"{len(kept[b])}, capped "
+                     f"{len(band[b]) - len(kept[b])}")
+            split = lane_profile(pts[b], lanes[b], dev)
+            i = order[b][split["lane"]]
+            dp, u = grid[i]
+            line += (f"; slowest lane {dp.label} u{u} "
+                     f"({'kept' if i in kept[b] else 'capped'}), "
+                     f"{split['cycles']} cycles, deferral scan "
+                     f"{split['shares'][3]:.1%} of its SM clocks")
         print(line)
     pruned_ms = sum(kernel_ms.values())
     n_cal = sum(b in CALIBRATED_BENCHES for b in BENCHMARKS)
+    n_kept = sum(len(k) for k in kept.values())
+    print(f"pruned (a): front cap: {n_cal_kept} of {n_cal_band} band points "
+          f"kept, {n_cal_band - n_cal_kept} capped; the {n_cal} band "
+          f"launches {sum(kernel_ms[b] for b in order):.3f} ms (the 15 "
+          "launches before the cap, first measured on an H100 80GB HBM3 "
+          "at 700 W: 2157.703 ms)")
     print(f"pruned (a): {launches} launches of cycle_lanes ({n_cal} bands, "
-          f"{len(BENCHMARKS) - n_cal} exhaustive fallbacks), {n_band} "
-          "points each equal to its golden row; "
+          f"{len(BENCHMARKS) - n_cal} exhaustive fallbacks), {n_kept} of "
+          f"{n_band} points returned, each equal to its golden row; "
           f"kernel {pruned_ms:.3f} ms in all against phase 8's "
           f"{sum(exhaustive_ms.values()):.3f} ms; cold pass "
           f"{sum(cold_s.values()):.3f} s (host clock) against phase 9's "
@@ -1476,6 +1518,7 @@ def pruned_sweep(dev: torch.device, kernels: dict,
     print(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches, "kernel_ms": kernel_ms,
             "band": {b: len(i) for b, i in band.items()},
+            "kept": {b: len(i) for b, i in kept.items()},
             "cold_s": sum(cold_s.values())}
 
 

@@ -17,3 +17,10 @@ the locality metric.
 - ``repro_torch.core.cost``     — CACTI-like SRAM + logic cost models
 - ``repro_torch.core.locality`` — Weinberg spatial-locality metric
 """
+from repro_torch.core.amm import AMM_KINDS, AMMSpec, make_amm
+from repro_torch.core.locality import spatial_locality_np, trace_locality
+
+__all__ = [
+    "AMMSpec", "AMM_KINDS", "make_amm",
+    "spatial_locality_np", "trace_locality",
+]

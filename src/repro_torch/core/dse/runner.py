@@ -9,7 +9,7 @@ compositions.  This module is the entry point for that loop:
 * **Batched evaluation** — every uncached point is scheduled by the
   batched timing backend, one ``cycle_lanes`` launch per
   ``batch_lanes`` points (one CTA a point on the card), and costed on
-  the host (:func:`repro_torch.core.dse.sweep.evaluate_batched`).
+  the host (:func:`repro_torch.core.dse.sweep.evaluate_points`).
 * **Incremental re-sweeps** — an on-disk result cache keyed by
   ``(trace fingerprint, design, unroll, mem_latency, cache version)``
   makes re-runs and ``--full`` extensions of a previous sweep pay only
@@ -22,15 +22,15 @@ compositions.  This module is the entry point for that loop:
   records its own.
 * **Surrogate pruning** — ``prune="surrogate"`` ranks the full grid on
   the host with the analytic cycle predictor
-  (:mod:`repro_torch.core.dse.surrogate`), schedules only the predicted
-  Pareto band (plus a safety margin) in one ``cycle_lanes`` launch per
-  ``batch_lanes`` points, and returns the band's points.  Unlike the
-  reference, whose serial C loop abandons a band point once it provably
-  cannot reach the time/area front (a front cap that depends on the
-  order the points run in), the lanes of one launch run concurrently and
-  every band point is scheduled to completion: the returned list is the
-  whole band, a superset of the reference's pruned result, and its
-  time/area front is the exhaustive front.
+  (:mod:`repro_torch.core.dse.surrogate`), serves the predicted Pareto
+  band's cached points and schedules its misses under the reference's
+  front cap (:func:`repro_torch.core.dse.sweep.evaluate_points` with
+  ``front_cap=True``): a miss that provably cannot reach the time/area
+  front, being slower than a strictly cheaper miss, is dropped, neither
+  returned nor cached.  The returned points are the reference's, point for point, for the
+  same cache state; like the reference's they depend on that state
+  (only the misses run under the cap), and they always hold the exact
+  time/area front.
 * **Audit** — ``check=True`` re-schedules the returned points with
   event logging, one launch per ``batch_lanes`` points, and validates
   every log with :mod:`repro_torch.core.verify`.
@@ -67,7 +67,7 @@ from typing import Iterable, Sequence
 
 from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
                                         DesignPoint, DSEPoint,
-                                        evaluate_batched,
+                                        evaluate_points,
                                         schedule_config_for)
 from repro_torch.core.sim import trace as T
 from repro_torch.core.sim.prepared import PreparedTrace, prepare_trace
@@ -279,9 +279,12 @@ def _legality_pass(pt: PreparedTrace, designs: Sequence[DesignPoint],
 
 def _evaluate(pt: PreparedTrace, grid: "list[tuple[DesignPoint, int]]",
               mem_latency: int, cache: "SweepCache | None", verbose: bool,
-              dev, batch_lanes: int) -> list[DSEPoint]:
+              dev, batch_lanes: int, front_cap: bool = False
+              ) -> "list[DSEPoint | None]":
     """The points of ``grid``, in its order: cache hits as they are, the
-    misses scheduled by :func:`evaluate_batched` and stored."""
+    misses scheduled by :func:`evaluate_points` and stored.  With
+    ``front_cap`` the misses run under the front cap, and a capped miss
+    is ``None``, neither returned nor cached."""
     keys = [point_key(pt.fingerprint, dp, u, mem_latency) if cache else None
             for dp, u in grid]
     results: "list[DSEPoint | None]" = [cache.get(k) if cache else None
@@ -292,16 +295,18 @@ def _evaluate(pt: PreparedTrace, grid: "list[tuple[DesignPoint, int]]",
 
     if todo:
         t0 = time.perf_counter()
-        fresh = evaluate_batched(pt, [grid[i] for i in todo],
-                                 mem_latency=mem_latency, device=dev,
-                                 batch_lanes=batch_lanes)
+        fresh = evaluate_points(pt, [grid[i] for i in todo], mem_latency,
+                                front_cap=front_cap, device=dev,
+                                batch_lanes=batch_lanes)
         for i, p in zip(todo, fresh):
             results[i] = p
-            if cache:
+            if cache and p is not None:
                 cache.put(keys[i], p)
+        capped = sum(p is None for p in fresh)
         _vlog(verbose,
-              f"{pt.trace.name}: {len(todo)} points in "
-              f"{-(-len(todo) // batch_lanes)} launches, "
+              f"{pt.trace.name}: simulated {len(todo) - capped} points "
+              f"({capped} front-capped, {len(grid) - len(todo)} cache hits) "
+              f"in {-(-len(todo) // batch_lanes)} launches, "
               f"{time.perf_counter() - t0:.3f}s")
     return results
 
@@ -311,10 +316,16 @@ def _run_pruned(pt: PreparedTrace, designs: Sequence[DesignPoint],
                 cache: "SweepCache | None", margin: "float | None",
                 verbose: bool, dev, batch_lanes: int) -> list[DSEPoint]:
     """Surrogate-pruned sweep: rank the grid on the host, keep the
-    predicted Pareto band and evaluate it as :func:`_evaluate` does (cache
-    hits served, the misses in one launch per ``batch_lanes`` points).
-    Returns the band's points, a designs-major subsequence of the grid;
-    every band point runs to completion (no front cap)."""
+    predicted Pareto band and evaluate it as :func:`_evaluate` does,
+    its misses under the front cap (one launch per ``batch_lanes``
+    misses, in ascending-area order).
+
+    Returns the retained points (a designs-major subsequence of the
+    grid), as the reference's ``runner.py:337-397`` does: the hits, and
+    the misses the cap did not drop.  The result holds every member of
+    the exact Pareto front: the band keeps the near-front candidates
+    (``margin`` is the slack on predicted time) and the cap drops only
+    points proven off the front against exact cheaper results."""
     from repro_torch.core.dse.surrogate import (DEFAULT_MARGIN,
                                                 grid_predictions,
                                                 select_band)
@@ -329,8 +340,9 @@ def _run_pruned(pt: PreparedTrace, designs: Sequence[DesignPoint],
           f"{time.perf_counter() - t0:.3f}s; band kept {sum(keep)} "
           f"(margin {margin:g})")
     band = [(p.design, p.unroll) for p, k in zip(preds, keep) if k]
-    return _evaluate(pt, band, mem_latency, cache, verbose, dev,
-                     batch_lanes)
+    return [p for p in _evaluate(pt, band, mem_latency, cache, verbose, dev,
+                                 batch_lanes, front_cap=True)
+            if p is not None]
 
 
 def _prune_falls_back(pt: PreparedTrace, mem_latency: int,
@@ -384,17 +396,16 @@ def run_sweep(
       cache: pre-constructed :class:`SweepCache` (overrides cache_dir).
       prune: ``"surrogate"`` ranks the grid with the analytic cycle
         predictor on the host and schedules only the predicted Pareto
-        band (:func:`repro_torch.core.dse.surrogate.select_band`), one
-        ``cycle_lanes`` launch per ``batch_lanes`` points.  Returns the
-        band, a designs-major *subsequence* of the grid whose time/area
-        Pareto front is the exhaustive one; each point is bitwise
-        identical to the exhaustive sweep's (and shares its cache
-        entries).  Every band point is scheduled to completion (the
-        reference's serial front cap is not applied), so the band is a
-        superset of what the reference's pruned sweep returns.  The
-        surrogate is calibrated at ``mem_latency == 2`` on the MachSuite
-        trace families (``surrogate.CALIBRATED_BENCHES``); other
-        latencies and the serving benches run the exhaustive grid.
+        band (:func:`repro_torch.core.dse.surrogate.select_band`), its
+        cache misses under the front cap, one ``cycle_lanes`` launch per
+        ``batch_lanes`` misses.  Returns a designs-major *subsequence*
+        of the band whose time/area Pareto front is the exhaustive one,
+        the reference's points for the same cache state; each point is
+        bitwise identical to the exhaustive sweep's (and shares its
+        cache entries).  The surrogate is calibrated at
+        ``mem_latency == 2`` on the MachSuite trace families
+        (``surrogate.CALIBRATED_BENCHES``); other latencies and the
+        serving benches run the exhaustive grid.
       margin: safety slack on predicted time for the surrogate band
         (default :data:`repro_torch.core.dse.surrogate.DEFAULT_MARGIN`).
       faults: a :class:`repro_torch.core.fault.FaultConfig` (or fault

@@ -42,10 +42,10 @@ from typing import Iterable, Sequence
 
 import numpy as np
 
-from repro_torch.core.cost import FU_AREA_MM2, memory_cost
+from repro_torch.core.cost import memory_cost
 from repro_torch.core.dse import _surrogate_coef as C
-from repro_torch.core.dse.sweep import (DesignPoint, _BASE_FU, _MIN_CYCLE_NS,
-                                        _spec_for)
+from repro_torch.core.dse.sweep import (DesignPoint, _BASE_FU, _spec_for,
+                                        _static_cost)
 from repro_torch.core.sim.arbiter import (KIND_BANKED, KIND_H_NTX,
                                           KIND_MULTIPUMP, KIND_REMAP,
                                           _NTX_KINDS, STALL_KEYS,
@@ -327,11 +327,8 @@ def grid_predictions(
                            pt.trace.word_bytes[aid] * 8)
                  for aid in pt.trace.array_names]
         costs = [memory_cost(s) for s in specs]
-        cycle_ns = max([_MIN_CYCLE_NS] + [c.cycle_ns for c in costs])
-        mem_area = sum(c.area_mm2 for c in costs)
         for u in unrolls:
-            area = mem_area + sum(FU_AREA_MM2[k] * v * u
-                                  for k, v in _BASE_FU.items())
+            area, cycle_ns = _static_cost(costs, u)
             out.append(GridPrediction(
                 design=dp, unroll=u,
                 prediction=_predict_from_features(

@@ -16,7 +16,10 @@ plus :func:`evaluate_batched`, the port's point evaluation: any list of
 ``(design, unroll)`` points of one trace scheduled by the batched timing
 backend, one ``cycle_lanes`` launch per ``batch_lanes`` points, and
 :func:`sweep_batched`, the whole ``designs x unrolls`` grid through it.
-The cached sweep runner on top of it is
+The reference's public functions over the same backend:
+:func:`evaluate_point`, :func:`evaluate_points` (with the front cap of
+the pruned sweep, its static costs from :func:`_point_static_cost`, a
+copy of the reference's) and :func:`sweep`, over the cached sweep runner
 :mod:`repro_torch.core.dse.runner`.
 """
 from __future__ import annotations
@@ -33,7 +36,7 @@ from repro_torch.core.sim.scheduler import ScheduleConfig
 
 __all__ = ["DesignPoint", "DEFAULT_DESIGNS", "DEFAULT_UNROLLS", "DSEPoint",
            "schedule_config_for", "point_from_schedule", "evaluate_batched",
-           "sweep_batched"]
+           "sweep_batched", "evaluate_point", "evaluate_points", "sweep"]
 
 # ScheduleResult / DSEPoint stall-field names, in STALL_KEYS order
 _STALL_FIELDS = tuple(f"{k}_stalls" for k in STALL_KEYS)
@@ -166,6 +169,24 @@ def schedule_config_for(tr, dp: DesignPoint, unroll: int,
     )
 
 
+def _static_cost(costs: "Sequence", unroll: int) -> tuple[float, float]:
+    """(area_mm2, cycle_ns) of a point from its arrays' memory costs (in
+    array order) and its unroll: the one place both are computed, for
+    :func:`point_from_schedule`, the front cap's static costs and the
+    surrogate's grid."""
+    cycle_ns = max([_MIN_CYCLE_NS] + [c.cycle_ns for c in costs])
+    area = sum(c.area_mm2 for c in costs)
+    area += sum(FU_AREA_MM2[k] * v * unroll for k, v in _BASE_FU.items())
+    return area, cycle_ns
+
+
+def _point_static_cost(cfg: ScheduleConfig, unroll: int
+                       ) -> tuple[float, float]:
+    """(area_mm2, cycle_ns) of a point before any simulation (the
+    reference's ``_point_static_cost``)."""
+    return _static_cost([memory_cost(s) for s in cfg.mem.values()], unroll)
+
+
 def point_from_schedule(tr, dp: DesignPoint, unroll: int,
                         cfg: ScheduleConfig, res) -> DSEPoint:
     """Fold one ``ScheduleResult`` into a costed :class:`DSEPoint`.
@@ -177,11 +198,8 @@ def point_from_schedule(tr, dp: DesignPoint, unroll: int,
     specs = cfg.mem
 
     costs = {aid: memory_cost(s) for aid, s in specs.items()}
-    cycle_ns = max([_MIN_CYCLE_NS] + [c.cycle_ns for c in costs.values()])
+    area, cycle_ns = _static_cost(list(costs.values()), unroll)
     time_us = res.cycles * cycle_ns * 1e-3
-
-    area = sum(c.area_mm2 for c in costs.values())
-    area += sum(FU_AREA_MM2[k] * v * unroll for k, v in _BASE_FU.items())
 
     # dynamic memory energy (per-array access counts precomputed on the
     # prepared trace)
@@ -252,3 +270,68 @@ def sweep_batched(tr, designs: Sequence[DesignPoint] = DEFAULT_DESIGNS,
     grid = [(dp, u) for dp in designs for u in unrolls]
     return evaluate_batched(tr, grid, mem_latency=mem_latency,
                             device=device, batch_lanes=batch_lanes)
+
+
+def evaluate_point(tr, dp: DesignPoint, unroll: int, mem_latency: int = 2,
+                   *, device=None) -> DSEPoint:
+    """One ``(design, unroll)`` point of one trace, costed: a batch of
+    one on the batched timing backend.  ``device`` as for
+    :func:`evaluate_batched`."""
+    return evaluate_batched(tr, [(dp, unroll)], mem_latency=mem_latency,
+                            device=device)[0]
+
+
+def evaluate_points(tr, points: "Sequence[tuple[DesignPoint, int]]",
+                    mem_latency: int = 2, *, front_cap: bool = False,
+                    device=None, batch_lanes: int = 256
+                    ) -> "list[DSEPoint | None]":
+    """Evaluate many ``(design, unroll)`` points of one trace, in input
+    order: :func:`evaluate_batched`, one launch per ``batch_lanes``
+    points.
+
+    With ``front_cap=True`` the points run in stable ascending-area
+    order (their static costs, :func:`_point_static_cost`), and a point
+    is ``None`` where the reference's C loop abandons it once its time
+    provably exceeds that of a strictly cheaper completed point (it
+    cannot be on the time/area front): ``schedule_batch(front_cap=True)``.
+    More than ``batch_lanes`` points go out in ascending-area launches,
+    and the rule runs once over all of them, as the reference's cap spans
+    its whole C call.  The surviving points hold every member of the
+    exact time/area front, each bitwise equal to its exhaustive point."""
+    from repro_torch.core.sim.scheduler import schedule_batch
+
+    if not front_cap:
+        return evaluate_batched(tr, points, mem_latency=mem_latency,
+                                device=device, batch_lanes=batch_lanes)
+    pt = prepare_trace(tr)
+    cfgs = [schedule_config_for(pt, dp, u, mem_latency) for dp, u in points]
+    statics = [_point_static_cost(cfg, u)
+               for cfg, (_, u) in zip(cfgs, points)]
+    order = sorted(range(len(points)), key=lambda i: statics[i][0])
+    results = schedule_batch(
+        pt, [cfgs[i] for i in order],
+        areas=[statics[i][0] for i in order],
+        cycle_ns=[statics[i][1] for i in order],
+        front_cap=True, device=device, batch_lanes=batch_lanes)
+    out: "list[DSEPoint | None]" = [None] * len(points)
+    for rank, i in enumerate(order):
+        if results[rank] is not None:
+            dp, u = points[i]
+            out[i] = point_from_schedule(pt, dp, u, cfgs[i], results[rank])
+    return out
+
+
+def sweep(tr, designs: Sequence[DesignPoint] = DEFAULT_DESIGNS,
+          unrolls: Iterable[int] = DEFAULT_UNROLLS, *, mem_latency: int = 2,
+          cache_dir=None, prune: "str | None" = None,
+          margin: "float | None" = None, verbose: bool = False,
+          device=None) -> list[DSEPoint]:
+    """Evaluate ``designs x unrolls`` on one trace: a thin wrapper over
+    :func:`repro_torch.core.dse.runner.run_sweep` (``cache_dir`` for the
+    on-disk result cache, ``prune="surrogate"`` for the pruned sweep,
+    which returns a subset of the grid holding the exact Pareto front).
+    Points come back ``designs``-major, ``unrolls``-minor."""
+    from repro_torch.core.dse.runner import run_sweep
+    return run_sweep(tr, designs, unrolls, mem_latency=mem_latency,
+                     cache_dir=cache_dir, prune=prune, margin=margin,
+                     verbose=verbose, device=device)

@@ -7,16 +7,31 @@
   leaf-path tables
 - ``events``        — the per-node issue-event log
 - ``scheduler``     — ``ScheduleConfig``/``ScheduleResult``,
-  ``schedule`` (one design) and ``schedule_events`` (with its log)
+  ``schedule`` (one design), ``schedule_events`` (with its log) and
+  ``schedule_batch`` (many, with the pruned sweep's front cap)
 - ``batched_cycle`` — the batched timing backend: every design lane of
   a grid in one ``cycle_lanes`` kernel launch
 """
-from repro_torch.core.sim.events import EventLog
-from repro_torch.core.sim.prepared import PreparedTrace, prepare_trace
+from repro_torch.core.sim.arbiter import (STALL_KEYS, ArbDescriptor,
+                                          compile_spec, ntx_tables)
+from repro_torch.core.sim.events import (PATH_BROADCAST, PATH_COMPUTE,
+                                         PATH_DIRECT, PATH_NAMES,
+                                         PATH_PAIR_RMW, PATH_PARITY,
+                                         PATH_STEERED, EventLog)
+from repro_torch.core.sim.prepared import (PreparedTrace, prepare_trace,
+                                           trace_fingerprint)
 from repro_torch.core.sim.scheduler import (ScheduleConfig, ScheduleResult,
                                             schedule, schedule_events)
-from repro_torch.core.sim.trace import Trace, TraceBuilder
+from repro_torch.core.sim.trace import (FADD, FDIV, FMUL, IADD, ICMP, IMUL,
+                                        LOAD, LOGIC, STORE, Trace,
+                                        TraceBuilder)
 
-__all__ = ["EventLog", "PreparedTrace", "ScheduleConfig", "ScheduleResult",
-           "Trace", "TraceBuilder", "prepare_trace", "schedule",
-           "schedule_events"]
+__all__ = [
+    "Trace", "TraceBuilder", "schedule", "ScheduleConfig", "ScheduleResult",
+    "schedule_events", "EventLog", "STALL_KEYS",
+    "PATH_COMPUTE", "PATH_DIRECT", "PATH_PARITY", "PATH_STEERED",
+    "PATH_PAIR_RMW", "PATH_BROADCAST", "PATH_NAMES",
+    "ArbDescriptor", "compile_spec", "ntx_tables",
+    "PreparedTrace", "prepare_trace", "trace_fingerprint",
+    "LOAD", "STORE", "FADD", "FMUL", "FDIV", "IADD", "IMUL", "ICMP", "LOGIC",
+]

@@ -17,6 +17,11 @@ arbitration rules follow the ``ArbDescriptor`` fields and the
 ``ntx_tables`` geometry; deferral-scan caps, first-deferral stall
 attribution and the idle-cycle jump are unchanged.  The port is held to
 ``tests/golden_schedule.json`` and to the reference's C loop.
+
+``schedule_front`` runs a batch under the reference's front cap (the
+pruned sweep's): every lane runs to completion and
+``scheduler.front_capped`` drops, on the host, the points the
+reference's C loop would have abandoned.
 """
 from __future__ import annotations
 
@@ -27,13 +32,16 @@ import numpy as np
 import torch
 
 from repro_torch.core.sim.arbiter import (F_RD, F_WR, N_FIELDS,
-                                          STALL_KEYS, compile_descriptors,
+                                          STALL_KEYS, _NTX_KINDS,
+                                          compile_descriptors,
                                           descriptor_device_tables,
                                           descriptor_matrix, device_limits)
 from repro_torch.core.sim.events import EventLog
 from repro_torch.core.sim.prepared import (FU_ORDER, _flatten_ranges,
                                            _next_pow2, prepare_trace)
-from repro_torch.core.sim.scheduler import ScheduleConfig, ScheduleResult
+from repro_torch.core.sim.scheduler import (_MAX_C_PARITY_PATHS,
+                                            ScheduleConfig, ScheduleResult,
+                                            front_capped)
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.cycle_lanes import (ERR_DEADLOCK, ERR_MAX_CYCLES,
@@ -230,6 +238,37 @@ def lane_outputs(pt, sc: StaticCfg, ins: dict, device, *,
         record=record, profile=profile)
 
 
+def _raise_for(err: int, cfg: ScheduleConfig, sc: StaticCfg) -> None:
+    """The reference loops' exception for a lane's error code (none for
+    ``ERR_NONE``)."""
+    if err == ERR_MAX_CYCLES:
+        raise RuntimeError(f"scheduler exceeded {cfg.max_cycles} cycles")
+    if err == ERR_DEADLOCK:
+        raise RuntimeError(
+            "deadlock: nodes remain but nothing ready/inflight")
+    if err == ERR_UNCONFIGURED:
+        raise KeyError("memory op on array without a ScheduleConfig.mem spec")
+    if err == ERR_WHEEL:
+        raise RuntimeError("cycle_lanes: more positions share a finish "
+                           f"than the wheel depth {sc.wheel_depth}")
+
+
+def _result(pt, b: int, cycles, cnt, per_array) -> ScheduleResult:
+    """Lane ``b`` of one call's outputs as a :class:`ScheduleResult`."""
+    return ScheduleResult(
+        cycles=int(cycles[b]),
+        issued=int(cnt[b, 0]),
+        mem_issued=int(cnt[b, 1]),
+        **{f"{k}_stalls": int(cnt[b, i])
+           for k, i in zip(STALL_KEYS, (2, 3, 4))},
+        parity_path_reads=int(cnt[b, 5]),
+        write_pair_rmws=int(cnt[b, 6]),
+        per_array_accesses={a: int(per_array[b, a])
+                            for a in pt.trace.array_names},
+        avg_mem_parallelism=int(cnt[b, 1]) / max(int(cnt[b, 7]), 1),
+    )
+
+
 def schedule_batched(tr, cfgs: "Sequence[ScheduleConfig]", *, device=None,
                      return_maps: bool = False,
                      collect_events: bool = False):
@@ -260,34 +299,9 @@ def schedule_batched(tr, cfgs: "Sequence[ScheduleConfig]", *, device=None,
     ev = out[5].cpu().numpy() if collect_events else None
 
     for b, cfg in enumerate(cfgs):
-        if err[b] == ERR_MAX_CYCLES:
-            raise RuntimeError(
-                f"scheduler exceeded {cfg.max_cycles} cycles")
-        if err[b] == ERR_DEADLOCK:
-            raise RuntimeError(
-                "deadlock: nodes remain but nothing ready/inflight")
-        if err[b] == ERR_UNCONFIGURED:
-            raise KeyError(
-                "memory op on array without a ScheduleConfig.mem spec")
-        if err[b] == ERR_WHEEL:
-            raise RuntimeError("cycle_lanes: more positions share a finish "
-                               f"than the wheel depth {sc.wheel_depth}")
-
-    names = pt.trace.array_names
-    results = [
-        ScheduleResult(
-            cycles=int(cycles[b]),
-            issued=int(cnt[b, 0]),
-            mem_issued=int(cnt[b, 1]),
-            **{f"{k}_stalls": int(cnt[b, i])
-               for k, i in zip(STALL_KEYS, (2, 3, 4))},
-            parity_path_reads=int(cnt[b, 5]),
-            write_pair_rmws=int(cnt[b, 6]),
-            per_array_accesses={a: int(per_array[b, a]) for a in names},
-            avg_mem_parallelism=int(cnt[b, 1]) / max(int(cnt[b, 7]), 1),
-        )
-        for b in range(len(cfgs))
-    ]
+        _raise_for(int(err[b]), cfg, sc)
+    results = [_result(pt, b, cycles, cnt, per_array)
+               for b in range(len(cfgs))]
     ret: tuple = (results,)
     if return_maps:
         ret = ret + (maps,)
@@ -299,6 +313,65 @@ def schedule_batched(tr, cfgs: "Sequence[ScheduleConfig]", *, device=None,
                                slot=ev[b, 3, :n].astype(np.int64))
                       for b in range(len(cfgs))],)
     return ret if len(ret) > 1 else ret[0]
+
+
+def front_eligible(pt, cfgs: "Sequence[ScheduleConfig]") -> np.ndarray:
+    """Which configs take part in the front cap, as in the reference's
+    C batch loop: none when the batch mixes ``ports_per_bank`` or
+    ``max_cycles`` (the reference then runs every config in its Python
+    loop), else every config whose NTX descriptors have at most
+    ``_MAX_C_PARITY_PATHS`` parity paths (``scheduler.py:313-327``)."""
+    if any(c.ports_per_bank != cfgs[0].ports_per_bank
+           or c.max_cycles != cfgs[0].max_cycles for c in cfgs):
+        return np.zeros(len(cfgs), bool)
+    return np.array([not any(
+        d is not None and d.kind in _NTX_KINDS
+        and (1 << d.levels) > _MAX_C_PARITY_PATHS
+        for d in compile_descriptors(c.mem, pt.n_arrays, c.ports_per_bank))
+        for c in cfgs], bool)
+
+
+def schedule_front(tr, cfgs: "Sequence[ScheduleConfig]",
+                   areas: "Sequence[float]", cycle_ns: "Sequence[float]",
+                   *, device=None, batch_lanes: int = 256
+                   ) -> "list[ScheduleResult | None]":
+    """``cfgs`` under the reference's front cap: one ``cycle_lanes``
+    launch per ``batch_lanes`` configs, every lane run to completion,
+    then :func:`front_capped` once over all of them on the exact cycles.
+    Results in ``cfgs`` order, ``None`` where the rule drops the config.
+
+    A dropped lane may have run past ``max_cycles`` (its budget was
+    lower, so the reference abandons it first); a kept one that did
+    raises the reference's "scheduler exceeded", and any other lane
+    error raises as in :func:`schedule_batched`."""
+    dev = resolve_device(device)
+    pt = prepare_trace(tr)
+    cfgs = list(cfgs)
+    n = len(cfgs)
+    if len(areas) != n or len(cycle_ns) != n:
+        raise ValueError(f"{n} configs but {len(areas)} areas and "
+                         f"{len(cycle_ns)} cycle times")
+    cycles = np.zeros(n, np.int64)
+    found: "list[ScheduleResult | None]" = [None] * n
+    for lo in range(0, n, batch_lanes):
+        sub = cfgs[lo:lo + batch_lanes]
+        sc, ins = _lane_inputs(pt, sub)
+        out = lane_outputs(pt, sc, ins, dev)
+        c, cnt, per_array, err = (o.cpu().numpy() for o in out[:4])
+        for b, cfg in enumerate(sub):
+            if err[b] != ERR_MAX_CYCLES:
+                _raise_for(int(err[b]), cfg, sc)
+                found[lo + b] = _result(pt, b, c, cnt, per_array)
+            cycles[lo + b] = c[b]
+    kept = front_capped(areas, cycle_ns, cycles,
+                        cfgs[0].max_cycles if n else 0,
+                        front_eligible(pt, cfgs) if n else [])
+    for i in range(n):
+        if not kept[i]:
+            found[i] = None
+        elif found[i] is None:
+            _raise_for(ERR_MAX_CYCLES, cfgs[i], sc)
+    return found
 
 
 def schedule_one(tr, cfg: ScheduleConfig, *, device=None) -> ScheduleResult:

@@ -863,6 +863,51 @@ def test_pruned_sweep_on_the_card_matches_plain(cuda, tmp_path):
     assert got == want
 
 
+@pytest.mark.parametrize("bench", ["viterbi", "bfs_queue"])
+def test_front_cap_on_the_card_keeps_the_rule_s_set(cuda, bench):
+    """A TINY band under the front cap: the card's kept points are
+    bit-equal to the plain lanes', the dropped ones exactly those the
+    host's rule caps on the plain lanes' cycles; three runs, one of them
+    in launches of 8 lanes, and the band given in reverse order to
+    ``evaluate_points`` return the same set."""
+    from repro_torch.core.bench import get_trace
+    from repro_torch.core.dse import surrogate
+    from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
+                                            _point_static_cost,
+                                            evaluate_points,
+                                            schedule_config_for)
+    from repro_torch.core.sim import prepare_trace
+    from repro_torch.core.sim.batched_cycle import (front_eligible,
+                                                    schedule_batched)
+    from repro_torch.core.sim.scheduler import front_capped, schedule_batch
+
+    pt = prepare_trace(get_trace(bench))
+    preds = surrogate.grid_predictions(pt, DEFAULT_DESIGNS, DEFAULT_UNROLLS)
+    band = [(p.design, p.unroll)
+            for p, k in zip(preds, surrogate.select_band(preds)) if k]
+    band.sort(key=lambda pu: _point_static_cost(
+        schedule_config_for(pt, *pu), pu[1])[0])
+    cfgs = [schedule_config_for(pt, dp, u) for dp, u in band]
+    areas, ns = zip(*(_point_static_cost(c, u)
+                      for c, (_, u) in zip(cfgs, band)))
+    plain = schedule_batched(pt, cfgs, device="cpu")
+    kept = front_capped(areas, ns, [r.cycles for r in plain],
+                        cfgs[0].max_cycles, front_eligible(pt, cfgs))
+    assert 0 < sum(kept) < len(cfgs)
+    for batch_lanes in (256, 256, 8):
+        got = schedule_batch(pt, cfgs, areas=areas, cycle_ns=ns,
+                             front_cap=True, batch_lanes=batch_lanes)
+        assert [r is not None for r in got] == kept
+        for g, w, k in zip(got, plain, kept):
+            if k:
+                assert g.summary() == w.summary()
+    want = evaluate_points(pt, band, front_cap=True, device="cpu")
+    back = evaluate_points(pt, band[::-1], front_cap=True)
+    assert [p is not None for p in want] == kept
+    assert [None if p is None else p.row() for p in back[::-1]] == \
+        [None if p is None else p.row() for p in want]
+
+
 @pytest.mark.parametrize("bench", ["paged_kv", "kmp", "aes"])
 def test_legality_pass_on_the_card(cuda, bench, tmp_path):
     """The audit re-schedules the points on the card with event logs,

@@ -30,7 +30,6 @@ from repro_torch.convert import (fault_mask_from_numpy, flat_state_to_numpy,
                                  words_to_numpy)
 from repro_torch.core.amm import replay as rp
 from repro_torch.core.amm.spec import AMMSpec
-from repro_torch.core.dse import sweep
 from repro_torch.core.fault import (COVER, RES_FIELDS, FaultConfig,
                                     FaultSpec, Resilience, attach_resilience,
                                     build_masks, design_resilience,
@@ -41,8 +40,10 @@ from repro_torch.core.fault import campaign as campaign_mod
 from test_fault import SPECS as FAULT_SPECS
 from test_torch_replay import port_spec
 
-# the module: ``repro.core.dse`` exports a function of the same name
+# the modules: ``repro.core.dse`` and ``repro_torch.core.dse`` export a
+# function of the same name
 jax_sweep = importlib.import_module("repro.core.dse.sweep")
+sweep = importlib.import_module("repro_torch.core.dse.sweep")
 GOLDEN = json.loads(
     (pathlib.Path(__file__).parent / "golden_faults.json").read_text())
 IDS = [s.describe() for s in FAULT_SPECS]

@@ -8,8 +8,14 @@ CPU, with the same numpy inputs:
   (``schedule_events(pt, cfg, backend="c")``): result and event log
   equal;
 * ``kernels/ref.py::ssd_chunk_ref`` within the reference's SSD
-  tolerance, 1e-4.
+  tolerance, 1e-4;
+* the packages ``repro_torch.core``, ``.core.sim`` and ``.core.dse``
+  export the reference packages' public names (``__all__``), but for a
+  named set that is not ported, and name their own additions: a later
+  gap, or an addition left unnamed, fails by name.
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -106,3 +112,37 @@ def test_ssd_chunk_ref_matches_jax(bt, h, q, p, n):
                                               for a in ins))
     torch.testing.assert_close(got_y, plain_y, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got_h, plain_h, atol=1e-4, rtol=1e-4)
+
+
+# the reference's exports that the port does not carry (ROADMAP's
+# not-to-port list: the JAX-only locality, the C loop's arbiter, the
+# process pool and the CPU backends) and the port's own additions
+NOT_PORTED = {
+    "core": {"spatial_locality_jax"},
+    "core.sim": {"PortArbiter"},
+    "core.dse": {"BACKENDS", "kill_pool", "shutdown_pool"},
+}
+PORT_ONLY = {
+    "core": set(),
+    "core.sim": set(),
+    "core.dse": {"evaluate_batched", "sweep_batched", "grid_predictions",
+                 "select_band", "predict", "DEFAULT_MARGIN"},
+}
+
+
+@pytest.mark.parametrize("package", sorted(NOT_PORTED))
+def test_packages_export_the_reference_s_public_names(package):
+    ref = importlib.import_module(f"repro.{package}")
+    port = importlib.import_module(f"repro_torch.{package}")
+    assert NOT_PORTED[package] <= set(ref.__all__)
+    missing = set(ref.__all__) - NOT_PORTED[package] - set(port.__all__)
+    assert not missing, f"repro_torch.{package} lacks {sorted(missing)}"
+    extra = set(port.__all__) - set(ref.__all__) - PORT_ONLY[package]
+    assert not extra, f"repro_torch.{package} adds {sorted(extra)}"
+    assert len(port.__all__) == len(set(port.__all__))
+    for name in set(ref.__all__) - NOT_PORTED[package]:
+        want = getattr(ref, name)
+        if isinstance(want, (int, str, tuple, dict)):   # constants: equal
+            assert repr(getattr(port, name)) == repr(want), name
+        else:
+            assert getattr(port, name).__name__ == want.__name__, name

@@ -35,13 +35,15 @@ from repro_torch.core import locality
 from repro_torch.core.amm import replay as rp
 from repro_torch.core.amm.spec import AMMSpec
 from repro_torch.core.bench import BENCHMARKS, PAPER_FIG4, SERVING, get_trace
-from repro_torch.core.dse import pareto, sweep
+from repro_torch.core.dse import pareto
 from repro_torch.core.sim import arbiter, events, prepare_trace, trace
 from repro_torch.core.sim.batched_cycle import remap_write_step
 from repro_torch.core.sim.scheduler import ScheduleResult
 
-# the module (``repro.core.dse`` exports a ``sweep`` function too)
+# the modules (``repro.core.dse`` and ``repro_torch.core.dse`` export a
+# ``sweep`` function too)
 ref_sweep = importlib.import_module("repro.core.dse.sweep")
+sweep = importlib.import_module("repro_torch.core.dse.sweep")
 
 HERE = pathlib.Path(__file__).parent
 BENCHES = tuple(REF_BENCHMARKS)

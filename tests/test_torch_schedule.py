@@ -30,13 +30,15 @@ from repro.core.sim.scheduler import schedule as ref_schedule
 from repro.core.sim.scheduler import schedule_events as ref_schedule_events
 from repro_torch.core.amm.spec import AMMSpec
 from repro_torch.core.bench import get_trace
-from repro_torch.core.dse import pareto, sweep, sweep_batched
+from repro_torch.core.dse import pareto, sweep_batched
 from repro_torch.core.sim import (ScheduleConfig, Trace, TraceBuilder,
                                   prepare_trace, schedule)
 from repro_torch.core.sim.batched_cycle import schedule_batched
 from repro_torch.core.sim.trace import IADD
 
 ref_sweep = importlib.import_module("repro.core.dse.sweep")
+# the module: ``repro_torch.core.dse`` exports a function of its name
+sweep = importlib.import_module("repro_torch.core.dse.sweep")
 pytestmark = pytest.mark.usefixtures("one_thread")
 
 

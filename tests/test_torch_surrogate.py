@@ -10,10 +10,12 @@ on-disk trace cache, against the JAX package, on the CPU.
   size; both are float64 numpy in the same order of operations);
 * the band holds the exhaustive time/area front on all 12 TINY
   calibrated benchmarks (exhaustive points from the reference's C loop);
-* the pruned sweep on the plain lanes returns exactly the band, each
-  point equal to the reference's exhaustive point, a superset of the
-  reference's front-capped pruned result, with the exhaustive time/area
-  front; the fallbacks run the exhaustive grid;
+* the pruned sweep on the plain lanes returns the reference's
+  front-capped pruned points row for row, pass after pass over one cache
+  dir (the result depends on the cache, as the reference's does), each
+  point equal to the reference's exhaustive point, with the exhaustive
+  time/area front; the CLI's pruned rows are the reference CLI's; the
+  fallbacks run the exhaustive grid;
 * the trace cache round-trips, can be turned off, raises on a damaged
   file, and is keyed by the port's own module source.
 
@@ -149,28 +151,67 @@ def test_band_holds_the_exhaustive_front(bench):
         [(p.design, p.unroll) for p in ref_pareto_front(pts)]
 
 
+# the reference's pruned sweep over one cache dir, three passes: the
+# points each returns (its misses run under the front cap, so a warm pass
+# re-runs the points capped before, now without the cheaper points that
+# capped them)
+PRUNED_PASSES = {"spmv_crs": [24, 24, 24], "gemm_ncubed": [33, 35, 35],
+                 "bfs_queue": [22, 29, 31]}
+
+
 @pytest.mark.parametrize("bench", PRUNED_BENCHES)
 def test_pruned_sweep_is_the_band_on_the_plain_lanes(bench, tmp_path,
                                                      capsys, one_thread):
+    """Three pruned passes over one cache dir, the port's beside the
+    reference's over another: each pass returns the reference's points
+    row for row with its cache hits and misses, a subset of the band
+    holding the exhaustive time/area front, each point the exhaustive
+    one."""
     pt, rpt = _pts(bench)
-    got = runner.run_sweep(pt, prune="surrogate", cache_dir=tmp_path,
-                           device="cpu", verbose=True)
     band = _band(pt)
-    assert f"band kept {len(band)} (margin 0.1)" in capsys.readouterr().err
-    assert [(p.design, p.unroll) for p in got] == band
     exhaustive, by_point = _ref_exhaustive(bench)
-    assert [p.row() for p in got] == \
-        [by_point[(p.design, p.unroll)].row() for p in got]
-    ref_pruned = ref_runner.run_sweep(rpt, REF_DESIGNS, DEFAULT_UNROLLS,
-                                      prune="surrogate")
-    assert {(p.design, p.unroll) for p in ref_pruned} <= set(band)
-    assert _front(got) == [(p.design, p.unroll)
-                           for p in ref_pareto_front(exhaustive)]
-    cache = runner.SweepCache(tmp_path)
-    again = runner.run_sweep(pt, prune="surrogate", cache=cache,
-                             device="cpu")
-    assert (cache.hits, cache.misses) == (len(band), 0)
-    assert again == got
+    front = [(p.design, p.unroll) for p in ref_pareto_front(exhaustive)]
+    sizes = []
+    for _ in range(3):
+        cache = runner.SweepCache(tmp_path / "port")
+        got = runner.run_sweep(pt, prune="surrogate", cache=cache,
+                               device="cpu", verbose=True)
+        err = capsys.readouterr().err
+        ref_cache = ref_runner.SweepCache(tmp_path / "ref")
+        want = ref_runner.run_sweep(rpt, REF_DESIGNS, DEFAULT_UNROLLS,
+                                    prune="surrogate", cache=ref_cache)
+        assert [p.row() for p in got] == [p.row() for p in want]
+        assert (cache.hits, cache.misses) == \
+            (ref_cache.hits, ref_cache.misses)
+        assert cache.hits + cache.misses == len(band)
+        assert f"band kept {len(band)} (margin 0.1)" in err
+        capped = cache.misses - (len(got) - cache.hits)
+        if cache.misses:
+            assert (f"simulated {cache.misses - capped} points ({capped} "
+                    f"front-capped, {cache.hits} cache hits)") in err
+        assert {(p.design, p.unroll) for p in got} <= set(band)
+        assert [p.row() for p in got] == \
+            [by_point[(p.design, p.unroll)].row() for p in got]
+        assert _front(got) == front
+        sizes.append(len(got))
+    assert sizes == PRUNED_PASSES[bench]
+
+
+def test_pruned_cli_rows_equal_the_reference_cli(tmp_path, capsys,
+                                                 one_thread):
+    """Cold, with ``--prune surrogate``: the port's CSV rows, header
+    included, are the reference CLI's (bfs_queue: 22 of its 31 band
+    points, 9 front-capped)."""
+    args = ["--bench", "bfs_queue", "--prune", "surrogate"]
+    ref_runner.main(args + ["--jobs", "1", "--cache-dir",
+                            str(tmp_path / "ref")])
+    want = capsys.readouterr().out
+    runner.main(args + ["--device", "cpu", "--cache-dir",
+                        str(tmp_path / "port")])
+    got = capsys.readouterr().out
+    assert "points=22 " in got and "hits=0 misses=31" in got
+    assert len(_csv_rows(got)) == 23
+    assert _csv_rows(got) == _csv_rows(want)
 
 
 @pytest.mark.parametrize("margin", [0.0, 0.5])
