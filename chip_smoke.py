@@ -265,12 +265,34 @@ fails:
    must have launched with the table's configuration, which must read
    no slower than the default by more than 3% in this run, and no
    kernel instantiation may spill.
+16. the port's copies of the repo's scripts, each loaded by path and its
+   ``main`` called in this process with every kernel's launch count set
+   to 0 before the call and read after it: (a)
+   ``examples/quickstart_torch.py`` on the card (two ``cycle_lanes``
+   launches, one a sweep) and with ``--device cpu``, both stdouts equal
+   to ``examples/quickstart.py``'s (``QUICKSTART_STDOUT``) byte for
+   byte; (b) ``examples/dse_machsuite_torch.py md_knn --full`` over a
+   fresh ``--cache-dir`` under ``build/``: one launch, the 80 points
+   equal to md_knn's rows of ``tests/golden_schedule_full.json``, the
+   banked and AMM fronts, the expansion and the ratio those of the
+   golden points; run again: 80 cache hits, no launch, the same
+   stdout; (c) ``tools/check_legality_torch.py`` over the 390 TINY
+   golden rows: one launch a benchmark, 0 violations, the static bounds
+   tight on 68 rows (as ``tools/check_legality.py --backends c``
+   finds), exit status 0; (d) ``examples/serve_lm_torch.py`` with its
+   defaults (qwen3-1.7b, tiny: no kernel) and with ``--arch
+   mamba2-130m`` (the SSD kernel once a chunk of each layer of the
+   64-token prefill, 2 x 4 = 8): 4 x 32 tokens each; (e)
+   ``examples/train_lm_torch.py --steps 160`` from an empty checkpoint
+   directory: the simulated failure at step 150 recovered, 160 steps,
+   the loss falling, no kernel.  Each sub-phase's seconds are printed.
 
 Every time is a median of device time between CUDA events (see
 ``time_ms``).  It then prints the ``kernels`` JSON line (kernel, plain,
 library and bound times; for the three tuned kernels the launch
 ``config`` and, where it is not the default, the default's time in this
-run, ``default_ms``), and last ``{"ok": true, "device": {...}}``.  It exits
+run, ``default_ms``; phase 16's launches by script,
+``scripts_launches``), and last ``{"ok": true, "device": {...}}``.  It exits
 non-zero, printing no result, when there is no CUDA device or the
 package is missing.
 """
@@ -395,6 +417,36 @@ DRYRUN_TIMEOUT = 300
 # (its _tree_bytes_sharded), which tests/test_torch_sharding.py holds
 # these numbers to
 DRYRUN_STATE_BYTES = {"pod16x16": 82132992, "pod2x16x16": 82132992}
+# phase 16: the port's copies of the repo's scripts, loaded by path
+SCRIPTS = {"quickstart": "examples/quickstart_torch.py",
+           "dse_machsuite": "examples/dse_machsuite_torch.py",
+           "check_legality": "tools/check_legality_torch.py",
+           "serve_lm": "examples/serve_lm_torch.py",
+           "train_lm": "examples/train_lm_torch.py"}
+# examples/quickstart.py's whole stdout (the JAX package on the CPU)
+QUICKSTART_STDOUT = (
+    '4 parallel reads  : [  0   1 128 255]\n'
+    'conflicting writes: 111 222 (via XOR ref re-pointing)\n'
+    'parity-path read  : 222 (reconstructed from the other bank + Ref)\n'
+    'built from 27 two-port banks of depth 32 (storage overhead 3.38x)\n'
+    '1024-cycle replay vs RAM oracle: OK; parity path agrees: True\n'
+    '\n'
+    'kmp      L_spatial = 0.615\n'
+    'md_knn   L_spatial = 0.084\n'
+    'kmp      perf-ratio (banked area / AMM area, geomean) = 0.72  '
+    '-> banking wins\n'
+    'md_knn   perf-ratio (banked area / AMM area, geomean) = 0.75  '
+    '-> banking wins\n'
+    '\n'
+    "The paper's law: AMM pays off when L_spatial < 0.3 (low locality).\n"
+)
+SCRIPT_BENCH = "md_knn"          # dse_machsuite --full
+TINY_GOLDEN_ROWS = 390
+TIGHT_ROWS = 68                  # tools/check_legality.py --backends c
+SCRIPT_PROMPT = 64               # examples/serve_lm.py's --prompt-len
+SCRIPT_BATCH, SCRIPT_GEN = 4, 32
+TRAIN_LM_STEPS = 160             # past examples/train_lm.py's failure at 150
+TRAIN_LM_FAILURE = 150
 
 
 def check(ok: bool, msg: str) -> None:
@@ -2866,6 +2918,197 @@ def autotune_phase(dev: torch.device, launched: dict) -> dict:
     return tuned
 
 
+def load_script(rel: str):
+    """A script of the repo as a module (its ``__main__`` guard keeps it
+    from running)."""
+    import importlib.util
+    path = REPO / rel
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_script(mod, argv: list, echo: bool = True) -> "tuple[object, str]":
+    """``mod.main(argv)`` in this process: its result and its stdout
+    (echoed unless ``echo`` is false)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = mod.main(argv)
+    if echo:
+        sys.stdout.write(buf.getvalue())
+    return out, buf.getvalue()
+
+
+def scripts_phase(dev: torch.device, kernels: dict) -> dict:
+    """Phase 16: the port's copies of the repo's scripts, each loaded by
+    path and its ``main`` called here on the card with the counts set to
+    0 before each call and read after it.  (a) the quickstart on the card
+    and with ``--device cpu``: both stdouts equal ``examples/quickstart.py``'s,
+    two ``cycle_lanes`` launches on the card; (b) ``dse_machsuite md_knn
+    --full`` cold over a fresh cache (one launch, every point its golden
+    row, the fronts, the expansion and the ratio those of the golden
+    points), then warm (80 hits, no launch, the same stdout); (c)
+    ``check_legality`` over the 390 TINY golden rows (15 launches, 0
+    violations, tight on 68, exit 0); (d) ``serve_lm`` with its defaults
+    (no kernel) and with mamba2-130m (``ssd_chunk`` once a chunk of each
+    layer in the prefill, then held against its plain version at that
+    chunk's shape); (e) ``train_lm`` for 160 steps from an empty
+    checkpoint directory: the failure at step 150 recovered, the loss
+    falling, no kernel.  Returns the launches by kernel and script."""
+    import shutil
+
+    from repro_torch.configs import get_arch, tiny_variant
+    from repro_torch.core.bench import BENCHMARKS, get_trace
+    from repro_torch.core.dse import (design_space_expansion, pareto_front,
+                                      performance_ratio)
+    from repro_torch.core.sim import prepare_trace
+    from repro_torch.models import ssm_config
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mods = {k: load_script(v) for k, v in SCRIPTS.items()}
+    seconds: "dict[str, float]" = {}
+    launches: "dict[str, dict[str, int]]" = {"cycle_lanes": {},
+                                             "ssd_scan": {}}
+
+    # (a) the quickstart, on the card and on the CPU
+    t0 = time.perf_counter()
+    zero_counts(kernels)
+    _, card_out = run_script(mods["quickstart"], [])
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    got = hold_counts(kernels, "16a quickstart", {"cycle_lanes": 2})
+    launches["cycle_lanes"]["quickstart"] = got["cycle_lanes"]
+    t1 = time.perf_counter()
+    _, cpu_out = run_script(mods["quickstart"], ["--device", "cpu"],
+                            echo=False)
+    cpu_s = time.perf_counter() - t1
+    hold_counts(kernels, "16a quickstart, then on the CPU",
+                {"cycle_lanes": 2})
+    check(card_out == cpu_out, "16a: the quickstart's stdout on the card "
+          "differs from its stdout on the CPU")
+    check(card_out == QUICKSTART_STDOUT, "16a: the quickstart's stdout "
+          "differs from examples/quickstart.py's")
+    print("16a quickstart: the card's stdout equals the CPU's and "
+          f"examples/quickstart.py's, byte for byte; {card_s:.1f} s on "
+          f"the card, {cpu_s:.1f} s on the host CPU")
+    seconds["16a"] = time.perf_counter() - t0
+
+    # (b) dse_machsuite at full size, cold then warm over one fresh cache
+    t0 = time.perf_counter()
+    cache_dir = REPO / "build" / "scripts_dse_cache"
+    shutil.rmtree(cache_dir, ignore_errors=True)
+    argv = [SCRIPT_BENCH, "--full", "--cache-dir", str(cache_dir)]
+    zero_counts(kernels)
+    cold, cold_out = run_script(mods["dse_machsuite"], argv)
+    torch.cuda.synchronize()
+    got = hold_counts(kernels, "16b dse_machsuite cold", {"cycle_lanes": 1})
+    launches["cycle_lanes"]["dse_machsuite"] = got["cycle_lanes"]
+    want = golden_points(prepare_trace(get_trace(SCRIPT_BENCH, full=True)),
+                         json.loads(GOLDEN_SCHEDULE_FULL.read_text()))
+    check(same_points(cold["points"], want),
+          f"16b: {SCRIPT_BENCH}'s points differ from its golden rows")
+    banked = [p for p in want if not p.is_amm]
+    amm = [p for p in want if p.is_amm]
+    check(same_points(cold["fronts"]["banking"], pareto_front(banked))
+          and same_points(cold["fronts"]["amm"], pareto_front(amm)),
+          "16b: a Pareto front differs from the golden points'")
+    check(cold["expansion"] == design_space_expansion(banked, amm)
+          and cold["ratio"] == performance_ratio(want),
+          "16b: the expansion or the ratio differs from the golden "
+          "points'")
+    check((cold["cache_hits"], cold["cache_misses"]) == (0, len(want)),
+          f"16b cold: {cold['cache_hits']} hits, {cold['cache_misses']} "
+          f"misses, want 0 and {len(want)}")
+    zero_counts(kernels)
+    warm, warm_out = run_script(mods["dse_machsuite"], argv, echo=False)
+    hold_counts(kernels, "16b dse_machsuite warm")
+    check((warm["cache_hits"], warm["cache_misses"]) == (len(want), 0),
+          f"16b warm: {warm['cache_hits']} hits, {warm['cache_misses']} "
+          f"misses, want {len(want)} and 0")
+    check(warm_out == cold_out, "16b: the warm run's stdout differs")
+    print(f"16b dse_machsuite {SCRIPT_BENCH} --full: {len(want)} points "
+          "golden, fronts, expansion and ratio the golden points'; warm: "
+          f"{warm['cache_hits']} hits, no launch, the same stdout")
+    shutil.rmtree(cache_dir)
+    seconds["16b"] = time.perf_counter() - t0
+
+    # (c) the legality checker over the TINY golden matrix
+    t0 = time.perf_counter()
+    zero_counts(kernels)
+    leg, _ = run_script(mods["check_legality"],
+                        ["--out", str(REPO / "build" / "legality_report.csv")])
+    torch.cuda.synchronize()
+    got = hold_counts(kernels, "16c check_legality",
+                      {"cycle_lanes": len(BENCHMARKS)})
+    launches["cycle_lanes"]["check_legality"] = got["cycle_lanes"]
+    check(leg["rows"] == TINY_GOLDEN_ROWS and leg["violations"] == 0
+          and leg["tight"] == TIGHT_ROWS and leg["rc"] == 0,
+          f"16c: {leg}, want {TINY_GOLDEN_ROWS} rows, 0 violations, tight "
+          f"on {TIGHT_ROWS}, rc 0")
+    seconds["16c"] = time.perf_counter() - t0
+
+    # (d) serving at the tiny preset: attention, then Mamba2
+    t0 = time.perf_counter()
+    zero_counts(kernels)
+    served, _ = run_script(mods["serve_lm"], [])
+    torch.cuda.synchronize()
+    hold_counts(kernels, "16d serve_lm qwen3-1.7b tiny")
+    check(served["generated"].shape == (SCRIPT_BATCH, SCRIPT_GEN),
+          f"16d: generated shape {served['generated'].shape}")
+    tiny = tiny_variant(get_arch(SSM_ARCH))
+    tcfg = ssm_config(tiny)
+    want_ssd = tiny.n_layers * (SCRIPT_PROMPT // tcfg.chunk)
+    zero_counts(kernels)
+    served, _ = run_script(mods["serve_lm"], ["--arch", SSM_ARCH])
+    torch.cuda.synchronize()
+    got = hold_counts(kernels, f"16d serve_lm {SSM_ARCH} tiny",
+                      {"ssd_scan": want_ssd})
+    launches["ssd_scan"]["serve_lm"] = got["ssd_scan"]
+    check(served["generated"].shape == (SCRIPT_BATCH, SCRIPT_GEN),
+          f"16d: generated shape {served['generated'].shape}")
+    # the kernel against its plain version at the chunk this prefill gave
+    # it (after the counts were read: these launches are not the path's)
+    shape = (SCRIPT_BATCH, tcfg.n_heads, tcfg.chunk, tcfg.head_dim,
+             tcfg.d_state)
+    hold_ssd(ssd_inputs(torch.Generator(device=dev).manual_seed(16),
+                        *shape),
+             "16d {} tiny Bt {} H {} Q {} P {} N {} f32".format(SSM_ARCH,
+                                                                *shape))
+    seconds["16d"] = time.perf_counter() - t0
+
+    # (e) training with the simulated failure, from no checkpoint
+    t0 = time.perf_counter()
+    ckpt_dir = mods["train_lm"].CKPT_DIR
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    zero_counts(kernels)
+    trained, train_out = run_script(mods["train_lm"],
+                                    ["--steps", str(TRAIN_LM_STEPS)])
+    torch.cuda.synchronize()
+    hold_counts(kernels, "16e train_lm")
+    check(f"simulated node failure at step {TRAIN_LM_FAILURE}" in train_out
+          and f"recovered at step {TRAIN_LM_FAILURE}" in train_out,
+          f"16e: no recovery from the failure at step {TRAIN_LM_FAILURE}")
+    check(trained["steps"] == TRAIN_LM_STEPS, f"16e: {trained['steps']} "
+          f"steps, want {TRAIN_LM_STEPS}")
+    check(trained["final_loss"] < trained["first_loss"],
+          f"16e: the loss went {trained['first_loss']:.4f} -> "
+          f"{trained['final_loss']:.4f}")
+    print(f"16e train_lm: recovered at step {TRAIN_LM_FAILURE}, loss "
+          f"{trained['first_loss']:.4f} -> {trained['final_loss']:.4f} in "
+          f"{trained['steps']} steps, median step "
+          f"{statistics.median(trained['step_ms']):.3f} ms (host clock)")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    seconds["16e"] = time.perf_counter() - t0
+
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()) + ")")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3366,6 +3609,11 @@ def main() -> int:
     # ---- 15. the autotuner ------------------------------------------
     tuned = autotune_phase(dev, launched)
 
+    # ---- 16. the scripts ----------------------------------------------
+    scripts = scripts_phase(dev, {
+        "amm_gather": amm_gather_u32, "banked_kv_decode": banked_kv_decode,
+        "ssd_scan": ssd_chunk_step, "cycle_lanes": cycle_lanes})
+
     def tuned_keys(kernel: str) -> dict:
         row = tuned[kernel]
         return {"config": row["config"]} | (
@@ -3394,8 +3642,10 @@ def main() -> int:
         "ms": ssd_ms, "kernel_ms": ssd_ms, "plain_ms": ssd_plain,
         "bound_ms": ssd_bound, "bound_by": ssd_by, "library_ms": None,
         "zamba2_prefill": zamba2_ssd, **train_ssd,
+        "scripts_launches": scripts["ssd_scan"],
         **tuned_keys("ssd_chunk")},
-        {**schedule_kernel, "config": None}]
+        {**schedule_kernel, "scripts_launches": scripts["cycle_lanes"],
+         "config": None}]
     print(json.dumps({"kernels": kernels, "card": card}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,13 @@
-"""Fitted surrogate coefficients: a verbatim copy of the JAX package's
-``core/dse/_surrogate_coef.py``, which is GENERATED — do not edit by hand.
+"""Fitted surrogate coefficients — GENERATED, do not edit by hand.
 
-The JAX package regenerates its file with::
+Regenerate with::
 
-    PYTHONPATH=src python tools/fit_surrogate.py
+    PYTHONPATH=src python tools/fit_surrogate_torch.py
 
-(deterministic: weighted least-squares init + fixed-step coordinate
-descent on the 312 pinned golden rows).  Copy the new constants here;
-tests/test_torch_surrogate.py holds the two files equal.
+The fit is deterministic (weighted least-squares init + fixed-step
+coordinate descent on the 312 pinned golden rows), so regeneration is
+reproducible; tests/test_torch_surrogate.py pins the resulting
+accuracy and the constants' equality with the JAX package's fit.
 """
 
 BASE = (1.014725, 0.269732)
@@ -46,7 +46,7 @@ from repro_torch.core.sim.arbiter import STALL_KEYS as _STALL_KEYS  # noqa: E402
 
 assert set(STALL) == {f"{k}_stalls" for k in _STALL_KEYS}, \
     "surrogate STALL coefficients out of sync with STALL_KEYS; re-run " \
-    "tools/fit_surrogate.py"
+    "tools/fit_surrogate_torch.py"
 
 FIT_STATS = {
     "aes": {

@@ -1,6 +1,9 @@
 """The port stands alone: no module of ``repro_torch``, nor
-``chip_smoke.py``, ``kernel_ab.py`` or ``phase_ab.py``, imports JAX or anything of the JAX package ``repro``,
-and no kernel path falls back to a plain version through a ``try``.
+``chip_smoke.py``, ``kernel_ab.py`` or ``phase_ab.py``, nor the port's
+scripts (``examples/*_torch.py``, ``tools/*_torch.py`` and
+``tools/time_plain_lanes.py``), imports JAX or anything of the JAX
+package ``repro``, and no kernel path falls back to a plain version
+through a ``try``.
 """
 import ast
 import os
@@ -16,10 +19,14 @@ PORT = ROOT / "src" / "repro_torch"
 SMOKE = ROOT / "chip_smoke.py"
 AB = ROOT / "kernel_ab.py"
 PHASE_AB = ROOT / "phase_ab.py"
+# the port's copies of the repo's scripts
+SCRIPTS = sorted(ROOT.glob("examples/*_torch.py")) + sorted(
+    ROOT.glob("tools/*_torch.py"))
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [SMOKE, AB, PHASE_AB]
+    return sorted(PORT.rglob("*.py")) + [SMOKE, AB, PHASE_AB] + SCRIPTS + [
+        ROOT / "tools" / "time_plain_lanes.py"]
 
 
 def _imported_roots(path: pathlib.Path):
@@ -66,6 +73,43 @@ def test_importing_the_port_loads_no_jax():
                          timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20     # every module was walked
+
+
+@pytest.mark.parametrize("path", SCRIPTS,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_importing_a_script_loads_no_jax(path):
+    """Import one of the port's scripts by path in a fresh interpreter,
+    as ``chip_smoke.py`` loads it: it runs nothing (its work sits behind
+    ``if __name__ == "__main__":``) and loads neither ``jax`` nor any
+    ``repro.*`` module."""
+    code = textwrap.dedent(f"""
+        import importlib.util, sys
+        spec = importlib.util.spec_from_file_location("script", {str(path)!r})
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        assert callable(mod.main)
+        bad = sorted(m for m in sys.modules
+                     if m in ("jax", "jaxlib", "repro")
+                     or m.startswith(("jax.", "jaxlib.", "repro.")))
+        assert not bad, bad
+    """)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env={**os.environ,
+                                         "PYTHONPATH": str(ROOT / "src")},
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout == ""
+
+
+def test_the_scripts_are_scanned():
+    """The seven ported scripts are among the files the import scans
+    read."""
+    names = {p.relative_to(ROOT).as_posix() for p in SCRIPTS}
+    assert names == {
+        "examples/quickstart_torch.py", "examples/dse_machsuite_torch.py",
+        "examples/serve_lm_torch.py", "examples/train_lm_torch.py",
+        "tools/check_legality_torch.py", "tools/surrogate_report_torch.py",
+        "tools/fit_surrogate_torch.py"}
 
 
 @pytest.mark.parametrize("sub", ["kernels", "memory", "models", "launch",
