@@ -367,8 +367,6 @@ AUDIT_BENCHES = ("bfs_queue", "paged_kv")
 CLI_BENCH = "md_knn"
 # phase 13: the surrogate-pruned sweep; the benchmark its audit re-runs
 PRUNE_AUDIT_BENCH = "spmv_crs"
-PHASES = ("retire", "rank", "FU issue + candidates", "deferral scan",
-          "clock")              # cycle_lanes' profiled phases
 # phase 10: the attention families, each at full width
 BF16_FLOPS_PER_S = 989e12     # H100 SXM bf16 tensor cores, dense
 ATTN_BATCH, ATTN_PROMPT, ATTN_GEN = 8, 4096, 16      # qwen3-1.7b
@@ -802,55 +800,6 @@ def schedule_row_matches(res, row: dict) -> bool:
             < 1e-9)
 
 
-def schedule_bytes(pt, ins: dict) -> "tuple[int, int]":
-    """The least bytes one ``cycle_lanes`` launch over ``pt`` must move,
-    and the leaf-table share of them.  The trace is read once for every
-    lane: perm, class ids and latencies of the real nodes, their real
-    predecessor edges, and the word and load flag of the memory nodes.
-    Per lane: its descriptor rows and scalars.  The NTX leaf tables only
-    for NTX arrays, one ``direct`` and one ``offset`` entry for each row
-    that the array's words address (parity rows are read only when a
-    read's direct port is busy, so none are counted).  Outputs: the
-    counters of every lane, and the final map of every remap array at its
-    own depth (the other lanes' maps stay zero)."""
-    from repro_torch.core.sim.arbiter import (_NTX_KINDS, F_CONFIGURED,
-                                              F_DEPTH, F_HALF, F_KIND,
-                                              KIND_H_NTX, KIND_REMAP)
-    dv = pt.device_views()
-    n, a_pad = dv.n_real, ins["desc"].shape[1]
-    lanes, depth = ins["desc"].shape[0], ins["direct"].shape[2]
-    preds = ins["preds_pad"][:n]
-    gid = ins["gid_perm"][:n]
-    mem_node = ins["perm"][:n][gid < a_pad]
-    mem_array = gid[gid < a_pad]
-    words = ins["word_idx"][mem_node]
-    n_bytes = (12 * n + 4 * int((preds != dv.n_pad).sum())
-               + 5 * len(mem_node) + ins["seg_start"].nbytes)
-    n_bytes += sum(ins[k].nbytes for k in ("desc", "fu_budgets",
-                                           "mem_latency", "ppb",
-                                           "max_cycles"))
-    n_bytes += 4 * lanes * (2 + 8 + a_pad)
-    rows: "dict[tuple, int]" = {}
-    leaf = 0
-    for d in ins["desc"]:
-        for a in range(a_pad):
-            kind, words_deep = int(d[a, F_KIND]), max(int(d[a, F_DEPTH]), 1)
-            if d[a, F_CONFIGURED] <= 0:
-                continue
-            if kind == KIND_REMAP:
-                n_bytes += 4 * min(words_deep, depth)
-            elif kind in _NTX_KINDS:
-                key = (a, words_deep, int(d[a, F_HALF]), kind == KIND_H_NTX)
-                if key not in rows:
-                    aw = np.mod(words[mem_array == a], words_deep)
-                    half = max(key[2], 0)
-                    tree = 0 if key[3] else (aw >= half)
-                    ta = np.minimum(aw - tree * half, depth - 1)
-                    rows[key] = len(np.unique(ta))
-                leaf += 8 * rows[key]
-    return n_bytes + leaf, leaf
-
-
 def golden_points(pt, full: list) -> list:
     """The full-size golden rows of ``pt``'s benchmark (the default
     designs x unrolls 1, 2, 4, 8, designs-major) folded into DSEPoints by
@@ -896,23 +845,6 @@ def legal_logs(pt, cfgs, results, logs, what: str) -> float:
     return time.perf_counter() - t0
 
 
-def lane_profile(pt, cfgs, dev: torch.device) -> dict:
-    """One launch of ``cycle_lanes``' profiling instantiation over
-    ``cfgs``: the lane with the most profiled SM clocks (the one that
-    sets the launch's time), its cycles, the cycles it visited, its
-    clocks a visited cycle and each phase's share of them."""
-    from repro_torch.core.sim.batched_cycle import _lane_inputs, lane_outputs
-    sc, ins = _lane_inputs(pt, cfgs)
-    out = lane_outputs(pt, sc, ins, dev, profile=True)
-    cycles, prof = out[0].cpu().numpy(), out[-1].cpu().numpy()
-    lane = int(np.argmax(prof[:, :len(PHASES)].sum(1)))
-    clocks = prof[lane, :len(PHASES)]
-    return {"lane": lane, "cycles": int(cycles[lane]),
-            "visited": int(prof[lane, len(PHASES)]),
-            "clocks_per_visit": float(clocks.sum() / prof[lane, -1]),
-            "shares": [float(c / clocks.sum()) for c in clocks]}
-
-
 def timing_backend(dev: torch.device) -> dict:
     """Phase 8: the batched timing backend.  (a) the TINY golden rows on
     the card, one launch a benchmark; (b) the full-size DSE matrix (the
@@ -927,7 +859,8 @@ def timing_backend(dev: torch.device) -> dict:
     from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
                                             schedule_config_for)
     from repro_torch.core.sim import prepare_trace
-    from repro_torch.core.sim.batched_cycle import (_lane_inputs,
+    from repro_torch.core.sim.batched_cycle import (LANE_PHASES,
+                                                    profile_lanes,
                                                     schedule_batched)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels.cycle_lanes import barrier_ms, cycle_lanes
@@ -984,7 +917,6 @@ def timing_backend(dev: torch.device) -> dict:
           f"cycle_lanes launched {path_launches} times for "
           f"{len(BENCHMARKS)} benchmarks")
     kernel_ms, most_cycles = {}, {}
-    n_bytes = leaf_bytes = 0
     for (bench, res), (start, end) in zip(results.items(), spans):
         rows = [g for g in full if g["bench"] == bench]
         check(len(rows) == len(res) == len(grid),
@@ -1000,12 +932,7 @@ def timing_backend(dev: torch.device) -> dict:
               f"cycles a lane simulated {most}, "
               f"{kernel_ms[bench] * 1e6 / most:.1f} ns a simulated cycle, "
               f"schedule_batched {wall[bench] * 1e3:.1f} ms (host clock)")
-        _, ins = _lane_inputs(prepared[bench], configs[bench])
-        got = schedule_bytes(prepared[bench], ins)
-        n_bytes += got[0]
-        leaf_bytes += got[1]
     total_ms = sum(kernel_ms.values())
-    b_ms, b_by = bound_ms(n_bytes)
     # the serial floor: a lane's simulated cycles are a chain, and a
     # cycle of a CTA-wide lane costs at least one block barrier
     bar_ms, bar_clocks = barrier_ms(dev)
@@ -1013,27 +940,22 @@ def timing_backend(dev: torch.device) -> dict:
     print(f"schedule (b): {len(full)} full-size rows of "
           f"tests/golden_schedule_full.json equal on the card; "
           f"{path_launches} launches, kernel {total_ms:.3f} ms in all; "
-          f"traces and configs {prep_s:.1f} s (set-up); bound {b_ms:.6f} "
-          f"ms ({b_by}: {n_bytes / 1e6:.3f} MB that the lanes must read "
-          f"or write, {leaf_bytes / 1e6:.3f} MB of it NTX leaf rows; "
-          f"kernel {total_ms / b_ms:.3g}x the bound); serial floor "
+          f"traces and configs {prep_s:.1f} s (set-up); serial floor "
           f"{floor_ms:.3f} ms (the most cycles of each launch x "
           f"{bar_ms * 1e6:.2f} ns, {bar_clocks:.1f} SM clocks, for one "
           f"barrier of a 512-thread CTA; kernel "
-          f"{total_ms / floor_ms:.3g}x the floor), so the "
-          f"{'serial floor' if floor_ms > b_ms else 'byte bound'} bounds "
-          f"it")
+          f"{total_ms / floor_ms:.3g}x the floor)")
     # where the slowest lane of each launch spends its cycles: the
     # profiling instantiation, launched outside the path's count
     for bench in BENCHMARKS:
-        split = lane_profile(prepared[bench], configs[bench], dev)
+        split = profile_lanes(prepared[bench], configs[bench], dev)
         dp, u = grid[split["lane"]]
         print(f"schedule (b) profile {bench}: slowest lane {split['lane']} "
               f"({dp.label} u{u}), {split['cycles']} cycles, "
               f"{split['visited']} visited, {split['clocks_per_visit']:.0f} "
               "SM clocks a visited cycle: "
               + ", ".join(f"{name} {share:.1%}" for name, share in
-                          zip(PHASES, split["shares"])))
+                          zip(LANE_PHASES, split["shares"])))
 
     # (c) kernel against plain at full width, events and maps included
     pt, cfgs = prepared[PLAIN_BENCH], configs[PLAIN_BENCH]
@@ -1106,7 +1028,7 @@ def timing_backend(dev: torch.device) -> dict:
             "launches": path_launches, "max_abs_err": float(err),
             "ms": total_ms, "kernel_ms": total_ms, "plain_ms": plain_ms,
             "plain_inputs_ms": card_ms, "launch_ms": kernel_ms,
-            "bound_ms": b_ms, "bound_by": b_by, "serial_floor_ms": floor_ms,
+            "serial_floor_ms": floor_ms,
             "library_ms": None}
 
 
@@ -1375,7 +1297,8 @@ def pruned_sweep(dev: torch.device, kernels: dict,
                                             _point_static_cost,
                                             schedule_config_for)
     from repro_torch.core.sim import prepare_trace
-    from repro_torch.core.sim.batched_cycle import front_eligible
+    from repro_torch.core.sim.batched_cycle import (front_eligible,
+                                                    profile_lanes)
     from repro_torch.core.sim.scheduler import front_capped
     from repro_torch.kernels import ops
 
@@ -1481,7 +1404,7 @@ def pruned_sweep(dev: torch.device, kernels: dict,
             line += (f"; front cap: band {len(band[b])}, kept "
                      f"{len(kept[b])}, capped "
                      f"{len(band[b]) - len(kept[b])}")
-            split = lane_profile(pts[b], lanes[b], dev)
+            split = profile_lanes(pts[b], lanes[b], dev)
             i = order[b][split["lane"]]
             dp, u = grid[i]
             line += (f"; slowest lane {dp.label} u{u} "

@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import Callable, Sequence
 
+from repro_torch import tracing
 from repro_torch.core.dse.sweep import DSEPoint
 
 
@@ -13,15 +14,16 @@ def pareto_front(
     cost: Callable[[DSEPoint], float] = lambda p: p.area_mm2,
 ) -> list[DSEPoint]:
     """Non-dominated set in (time_us, cost), sorted by time."""
-    pts = sorted(points, key=lambda p: (p.time_us, cost(p)))
-    front: list[DSEPoint] = []
-    best = float("inf")
-    for p in pts:
-        c = cost(p)
-        if c < best - 1e-12:
-            front.append(p)
-            best = c
-    return front
+    with tracing.span("dse.pareto"):
+        pts = sorted(points, key=lambda p: (p.time_us, cost(p)))
+        front: list[DSEPoint] = []
+        best = float("inf")
+        for p in pts:
+            c = cost(p)
+            if c < best - 1e-12:
+                front.append(p)
+                best = c
+        return front
 
 
 def cost_at_time(

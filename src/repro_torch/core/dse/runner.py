@@ -65,6 +65,7 @@ import time
 from pathlib import Path
 from typing import Iterable, Sequence
 
+from repro_torch import tracing
 from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
                                         DesignPoint, DSEPoint,
                                         evaluate_points,
@@ -333,8 +334,9 @@ def _run_pruned(pt: PreparedTrace, designs: Sequence[DesignPoint],
     if margin is None:
         margin = DEFAULT_MARGIN
     t0 = time.perf_counter()
-    preds = grid_predictions(pt, designs, unrolls)
-    keep = select_band(preds, margin)
+    with tracing.span("dse.rank"):
+        preds = grid_predictions(pt, designs, unrolls)
+        keep = select_band(preds, margin)
     _vlog(verbose,
           f"{pt.trace.name}: surrogate ranked {len(preds)} points in "
           f"{time.perf_counter() - t0:.3f}s; band kept {sum(keep)} "
@@ -429,23 +431,26 @@ def run_sweep(
     """
     if prune not in (None, "surrogate"):
         raise ValueError(f"prune must be None or 'surrogate', got {prune!r}")
-    dev = resolve_device(device)
-    unrolls = tuple(unrolls)
-    pt = prepare_trace(tr)
-    if cache is None:
-        cache = _resolve_cache(cache_dir)
+    tracing.count("dse.sweeps")
+    with tracing.span("dse.sweep"):
+        dev = resolve_device(device)
+        unrolls = tuple(unrolls)
+        pt = prepare_trace(tr)
+        if cache is None:
+            cache = _resolve_cache(cache_dir)
 
-    if prune == "surrogate" and not _prune_falls_back(pt, mem_latency,
-                                                      verbose):
-        results = _run_pruned(pt, designs, unrolls, mem_latency, cache,
-                              margin, verbose, dev, batch_lanes)
-    else:
-        results = _evaluate(pt, [(dp, u) for dp in designs for u in unrolls],
-                            mem_latency, cache, verbose, dev, batch_lanes)
-    if check:
-        _legality_pass(pt, designs, mem_latency, results, verbose, dev,
-                       batch_lanes)
-    return _attach_faults(results, designs, faults, dev)
+        if prune == "surrogate" and not _prune_falls_back(pt, mem_latency,
+                                                          verbose):
+            results = _run_pruned(pt, designs, unrolls, mem_latency, cache,
+                                  margin, verbose, dev, batch_lanes)
+        else:
+            results = _evaluate(pt, [(dp, u) for dp in designs
+                                     for u in unrolls],
+                                mem_latency, cache, verbose, dev, batch_lanes)
+        if check:
+            _legality_pass(pt, designs, mem_latency, results, verbose, dev,
+                           batch_lanes)
+        return _attach_faults(results, designs, faults, dev)
 
 
 def run_sweep_bench(

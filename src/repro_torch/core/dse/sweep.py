@@ -27,6 +27,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Iterable, Sequence
 
+from repro_torch import tracing
 from repro_torch.core.amm.spec import AMMSpec
 from repro_torch.core.cost import (FU_AREA_MM2, FU_LEAK_MW, FU_POWER_MW,
                                    memory_cost)
@@ -248,11 +249,13 @@ def evaluate_batched(tr, grid: "Sequence[tuple[DesignPoint, int]]", *,
     points: list[DSEPoint] = []
     for lo in range(0, len(grid), batch_lanes):
         chunk = grid[lo:lo + batch_lanes]
-        cfgs = [schedule_config_for(pt, dp, u, mem_latency)
-                for dp, u in chunk]
+        with tracing.span("dse.configs"):
+            cfgs = [schedule_config_for(pt, dp, u, mem_latency)
+                    for dp, u in chunk]
         scheds = schedule_batched(pt, cfgs, device=device)
-        points += [point_from_schedule(pt, dp, u, cfg, res)
-                   for (dp, u), cfg, res in zip(chunk, cfgs, scheds)]
+        with tracing.span("dse.fold"):
+            points += [point_from_schedule(pt, dp, u, cfg, res)
+                       for (dp, u), cfg, res in zip(chunk, cfgs, scheds)]
     return points
 
 
@@ -304,20 +307,25 @@ def evaluate_points(tr, points: "Sequence[tuple[DesignPoint, int]]",
         return evaluate_batched(tr, points, mem_latency=mem_latency,
                                 device=device, batch_lanes=batch_lanes)
     pt = prepare_trace(tr)
-    cfgs = [schedule_config_for(pt, dp, u, mem_latency) for dp, u in points]
-    statics = [_point_static_cost(cfg, u)
-               for cfg, (_, u) in zip(cfgs, points)]
-    order = sorted(range(len(points)), key=lambda i: statics[i][0])
+    with tracing.span("dse.configs"):
+        cfgs = [schedule_config_for(pt, dp, u, mem_latency)
+                for dp, u in points]
+    with tracing.span("dse.front_cap"):
+        statics = [_point_static_cost(cfg, u)
+                   for cfg, (_, u) in zip(cfgs, points)]
+        order = sorted(range(len(points)), key=lambda i: statics[i][0])
     results = schedule_batch(
         pt, [cfgs[i] for i in order],
         areas=[statics[i][0] for i in order],
         cycle_ns=[statics[i][1] for i in order],
         front_cap=True, device=device, batch_lanes=batch_lanes)
     out: "list[DSEPoint | None]" = [None] * len(points)
-    for rank, i in enumerate(order):
-        if results[rank] is not None:
-            dp, u = points[i]
-            out[i] = point_from_schedule(pt, dp, u, cfgs[i], results[rank])
+    with tracing.span("dse.fold"):
+        for rank, i in enumerate(order):
+            if results[rank] is not None:
+                dp, u = points[i]
+                out[i] = point_from_schedule(pt, dp, u, cfgs[i],
+                                             results[rank])
     return out
 
 

@@ -22,6 +22,12 @@ attribution and the idle-cycle jump are unchanged.  The port is held to
 pruned sweep's): every lane runs to completion and
 ``scheduler.front_capped`` drops, on the host, the points the
 reference's C loop would have abandoned.
+
+``profile_lanes`` launches the kernel's profiling instantiation and
+reads where the slowest lane spends its SM clocks.  The host's work is
+spanned (``repro_torch.tracing``: ``batch.descriptors``,
+``batch.layout``, ``batch.h2d``, ``dse.fold``, ``dse.front_cap``) and
+the lanes launched and dropped are counted.
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core.sim.arbiter import (F_RD, F_WR, N_FIELDS,
                                           STALL_KEYS, _NTX_KINDS,
                                           compile_descriptors,
@@ -105,33 +112,36 @@ def _lane_inputs(pt, cfgs) -> "tuple[StaticCfg, dict]":
     and the kernel's position-space view of the trace
     (:func:`_kernel_layout`)."""
     dv = pt.device_views()
-    all_descs = [compile_descriptors(c.mem, pt.n_arrays, c.ports_per_bank)
-                 for c in cfgs]
-    S, U, NB, D, PP = _bucket_limits([device_limits(d) for d in all_descs])
-    A = dv.a_pad
-    B = len(cfgs)
-    ins = {"desc": np.zeros((B, A, N_FIELDS), np.int32),
-           "fu_budgets": np.zeros((B, len(FU_ORDER)), np.int32),
-           "mem_latency": np.zeros((B,), np.int32),
-           "ppb": np.zeros((B,), np.int32),
-           "max_cycles": np.zeros((B,), np.int32),
-           "direct": np.zeros((B, A, D), np.int32),
-           "offset": np.zeros((B, A, D), np.int32),
-           "parity": np.zeros((B, A, D, PP), np.int32)}
-    for b, (cfg, descs) in enumerate(zip(cfgs, all_descs)):
-        mat = descriptor_matrix(descs)
-        ins["desc"][b, :mat.shape[0]] = mat.astype(np.int32)
-        (ins["direct"][b], ins["offset"][b],
-         ins["parity"][b]) = descriptor_device_tables(descs, A, D, PP)
-        ins["fu_budgets"][b] = [cfg.fu_counts.get(name, 1)
-                                for name in FU_ORDER]
-        ins["mem_latency"][b] = cfg.mem_latency
-        ins["ppb"][b] = cfg.ports_per_bank
-        ins["max_cycles"][b] = min(cfg.max_cycles, INT32_INF - 64)
+    with tracing.span("batch.descriptors"):
+        all_descs = [compile_descriptors(c.mem, pt.n_arrays,
+                                         c.ports_per_bank) for c in cfgs]
+        S, U, NB, D, PP = _bucket_limits([device_limits(d)
+                                          for d in all_descs])
+        A = dv.a_pad
+        B = len(cfgs)
+        ins = {"desc": np.zeros((B, A, N_FIELDS), np.int32),
+               "fu_budgets": np.zeros((B, len(FU_ORDER)), np.int32),
+               "mem_latency": np.zeros((B,), np.int32),
+               "ppb": np.zeros((B,), np.int32),
+               "max_cycles": np.zeros((B,), np.int32),
+               "direct": np.zeros((B, A, D), np.int32),
+               "offset": np.zeros((B, A, D), np.int32),
+               "parity": np.zeros((B, A, D, PP), np.int32)}
+        for b, (cfg, descs) in enumerate(zip(cfgs, all_descs)):
+            mat = descriptor_matrix(descs)
+            ins["desc"][b, :mat.shape[0]] = mat.astype(np.int32)
+            (ins["direct"][b], ins["offset"][b],
+             ins["parity"][b]) = descriptor_device_tables(descs, A, D, PP)
+            ins["fu_budgets"][b] = [cfg.fu_counts.get(name, 1)
+                                    for name in FU_ORDER]
+            ins["mem_latency"][b] = cfg.mem_latency
+            ins["ppb"][b] = cfg.ports_per_bank
+            ins["max_cycles"][b] = min(cfg.max_cycles, INT32_INF - 64)
     for name in ("preds_pad", "lat", "is_load", "word_idx", "perm",
                  "gid_perm", "seg_start"):
         ins[name] = getattr(dv, name)
-    pend_bits, wheel_slots, wheel_depth = _kernel_layout(pt, ins)
+    with tracing.span("batch.layout"):
+        pend_bits, wheel_slots, wheel_depth = _kernel_layout(pt, ins)
     sc = StaticCfg(n_pad=dv.n_pad, n_preds_max=dv.n_preds_max, a_pad=A,
                    scan_slots=S, key_space=U, bank_slots=NB, table_depth=D,
                    parity_paths=PP, pend_bits=pend_bits,
@@ -225,7 +235,9 @@ def lane_outputs(pt, sc: StaticCfg, ins: dict, device, *,
     """``_lane_inputs``' arrays moved to ``device`` and the one
     ``ops.cycle_lanes`` call over them: its raw outputs (see
     ``kernels/cycle_lanes.py``; ``profile`` needs the card)."""
-    t = {k: torch.from_numpy(v).to(device) for k, v in ins.items()}
+    with tracing.span("batch.h2d"):
+        t = {k: torch.from_numpy(v).to(device) for k, v in ins.items()}
+    tracing.count("batch.lanes", len(ins["desc"]))
     return ops.cycle_lanes(
         t["desc"], t["fu_budgets"], t["mem_latency"], t["ppb"],
         t["max_cycles"], t["direct"], t["offset"], t["parity"],
@@ -298,20 +310,21 @@ def schedule_batched(tr, cfgs: "Sequence[ScheduleConfig]", *, device=None,
     cycles, cnt, per_array, err, maps = (o.cpu().numpy() for o in out[:5])
     ev = out[5].cpu().numpy() if collect_events else None
 
-    for b, cfg in enumerate(cfgs):
-        _raise_for(int(err[b]), cfg, sc)
-    results = [_result(pt, b, cycles, cnt, per_array)
-               for b in range(len(cfgs))]
-    ret: tuple = (results,)
-    if return_maps:
-        ret = ret + (maps,)
-    if collect_events:
-        n = pt.trace.n_nodes
-        ret = ret + ([EventLog(cycle=ev[b, 0, :n].astype(np.int64),
-                               path=ev[b, 1, :n].astype(np.int64),
-                               resource=ev[b, 2, :n].astype(np.int64),
-                               slot=ev[b, 3, :n].astype(np.int64))
-                      for b in range(len(cfgs))],)
+    with tracing.span("dse.fold"):
+        for b, cfg in enumerate(cfgs):
+            _raise_for(int(err[b]), cfg, sc)
+        results = [_result(pt, b, cycles, cnt, per_array)
+                   for b in range(len(cfgs))]
+        ret: tuple = (results,)
+        if return_maps:
+            ret = ret + (maps,)
+        if collect_events:
+            n = pt.trace.n_nodes
+            ret = ret + ([EventLog(cycle=ev[b, 0, :n].astype(np.int64),
+                                   path=ev[b, 1, :n].astype(np.int64),
+                                   resource=ev[b, 2, :n].astype(np.int64),
+                                   slot=ev[b, 3, :n].astype(np.int64))
+                          for b in range(len(cfgs))],)
     return ret if len(ret) > 1 else ret[0]
 
 
@@ -358,20 +371,59 @@ def schedule_front(tr, cfgs: "Sequence[ScheduleConfig]",
         sc, ins = _lane_inputs(pt, sub)
         out = lane_outputs(pt, sc, ins, dev)
         c, cnt, per_array, err = (o.cpu().numpy() for o in out[:4])
-        for b, cfg in enumerate(sub):
-            if err[b] != ERR_MAX_CYCLES:
-                _raise_for(int(err[b]), cfg, sc)
-                found[lo + b] = _result(pt, b, c, cnt, per_array)
-            cycles[lo + b] = c[b]
-    kept = front_capped(areas, cycle_ns, cycles,
-                        cfgs[0].max_cycles if n else 0,
-                        front_eligible(pt, cfgs) if n else [])
+        with tracing.span("dse.fold"):
+            for b, cfg in enumerate(sub):
+                if err[b] != ERR_MAX_CYCLES:
+                    _raise_for(int(err[b]), cfg, sc)
+                    found[lo + b] = _result(pt, b, c, cnt, per_array)
+                cycles[lo + b] = c[b]
+    with tracing.span("dse.front_cap"):
+        kept = front_capped(areas, cycle_ns, cycles,
+                            cfgs[0].max_cycles if n else 0,
+                            front_eligible(pt, cfgs) if n else [])
+    tracing.count("dse.front_cap.dropped", n - sum(kept))
     for i in range(n):
         if not kept[i]:
             found[i] = None
         elif found[i] is None:
             _raise_for(ERR_MAX_CYCLES, cfgs[i], sc)
     return found
+
+
+# the phases ``cycle_lanes``' profiling instantiation clocks, in the
+# order of its profile columns
+LANE_PHASES = ("retire", "rank", "FU issue + candidates", "deferral scan",
+               "clock")
+
+
+def profile_lanes(tr, cfgs: "Sequence[ScheduleConfig]", device=None
+                  ) -> dict:
+    """Where the slowest lane of one ``cycle_lanes`` launch over ``cfgs``
+    spends its time: one launch of the kernel's profiling instantiation
+    on the CUDA ``device`` (``None``: the CUDA device).
+
+    The slowest lane is the one with the most profiled SM clocks; it
+    sets the launch's time.  Returns its index in ``cfgs`` (``lane``),
+    its ``cycles``, the cycles it ``visited`` (the idle-cycle jump skips
+    the rest), its SM ``clocks`` in each of :data:`LANE_PHASES`,
+    ``clocks_per_visit`` and each phase's ``shares`` of its clocks.
+    Raises ``ValueError`` off the card: the plain lanes keep no
+    clocks."""
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"profile_lanes needs the CUDA device, not {dev}")
+    pt = prepare_trace(tr)
+    sc, ins = _lane_inputs(pt, list(cfgs))
+    out = lane_outputs(pt, sc, ins, dev, profile=True)
+    cycles, prof = out[0].cpu().numpy(), out[-1].cpu().numpy()
+    k = len(LANE_PHASES)
+    lane = int(np.argmax(prof[:, :k].sum(1)))
+    clocks = prof[lane, :k]
+    return {"lane": lane, "cycles": int(cycles[lane]),
+            "visited": int(prof[lane, k]),
+            "clocks": dict(zip(LANE_PHASES, map(int, clocks))),
+            "clocks_per_visit": float(clocks.sum() / prof[lane, k]),
+            "shares": [float(c / clocks.sum()) for c in clocks]}
 
 
 def schedule_one(tr, cfg: ScheduleConfig, *, device=None) -> ScheduleResult:

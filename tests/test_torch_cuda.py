@@ -763,6 +763,28 @@ def test_cycle_lanes_profile_and_barrier_probe(cuda):
         _lane_call(pt, cfgs, cuda, record=True, profile=True)
 
 
+def test_profile_lanes_reads_the_slowest_lane(cuda):
+    """``batched_cycle.profile_lanes`` names a lane of the launch, its
+    cycles as the schedule has them, the cycles it visited and its SM
+    clocks in each phase, with shares that sum to one."""
+    from _torch_sched_util import golden_configs
+    from repro_torch.core.sim.batched_cycle import (LANE_PHASES,
+                                                    profile_lanes,
+                                                    schedule_batched)
+
+    pt, _, cfgs = golden_configs("bfs_queue")
+    got = profile_lanes(pt, cfgs, cuda)
+    res = schedule_batched(pt, cfgs, device=cuda)
+    assert 0 <= got["lane"] < len(cfgs)
+    assert got["cycles"] == res[got["lane"]].cycles
+    assert 0 < got["visited"] <= got["cycles"]
+    assert list(got["clocks"]) == list(LANE_PHASES)
+    clocks = sum(got["clocks"].values())
+    assert clocks > 0 and all(c >= 0 for c in got["clocks"].values())
+    assert got["clocks_per_visit"] == pytest.approx(clocks / got["visited"])
+    assert sum(got["shares"]) == pytest.approx(1.0)
+
+
 def test_cycle_lanes_rejects_what_it_does_not_take(cuda):
     """A layout beyond the card's shared memory is refused at launch
     (the wrapper raises); a CPU tensor mixed with CUDA ones is refused."""
