@@ -955,7 +955,9 @@ def timing_backend(dev: torch.device) -> dict:
               f"{split['visited']} visited, {split['clocks_per_visit']:.0f} "
               "SM clocks a visited cycle: "
               + ", ".join(f"{name} {share:.1%}" for name, share in
-                          zip(LANE_PHASES, split["shares"])))
+                          zip(LANE_PHASES, split["shares"]))
+              + f"; scan {split['scan_pops']} pops in "
+              f"{split['scan_rounds']} warp rounds")
 
     # (c) kernel against plain at full width, events and maps included
     pt, cfgs = prepared[PLAIN_BENCH], configs[PLAIN_BENCH]
@@ -1410,7 +1412,9 @@ def pruned_sweep(dev: torch.device, kernels: dict,
             line += (f"; slowest lane {dp.label} u{u} "
                      f"({'kept' if i in kept[b] else 'capped'}), "
                      f"{split['cycles']} cycles, deferral scan "
-                     f"{split['shares'][3]:.1%} of its SM clocks")
+                     f"{split['shares'][3]:.1%} of its SM clocks, "
+                     f"{split['scan_pops']} pops in "
+                     f"{split['scan_rounds']} warp rounds")
         print(line)
     pruned_ms = sum(kernel_ms.values())
     n_cal = sum(b in CALIBRATED_BENCHES for b in BENCHMARKS)

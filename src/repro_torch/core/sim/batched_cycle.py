@@ -406,7 +406,10 @@ def profile_lanes(tr, cfgs: "Sequence[ScheduleConfig]", device=None
     sets the launch's time.  Returns its index in ``cfgs`` (``lane``),
     its ``cycles``, the cycles it ``visited`` (the idle-cycle jump skips
     the rest), its SM ``clocks`` in each of :data:`LANE_PHASES`,
-    ``clocks_per_visit`` and each phase's ``shares`` of its clocks.
+    ``clocks_per_visit``, each phase's ``shares`` of its clocks, and the
+    candidates its deferral scan popped (``scan_pops``) in how many
+    warp rounds (``scan_rounds``; pops a round is the parallelism the
+    scan's warps found).
     Raises ``ValueError`` off the card: the plain lanes keep no
     clocks."""
     dev = resolve_device(device)
@@ -423,7 +426,9 @@ def profile_lanes(tr, cfgs: "Sequence[ScheduleConfig]", device=None
             "visited": int(prof[lane, k]),
             "clocks": dict(zip(LANE_PHASES, map(int, clocks))),
             "clocks_per_visit": float(clocks.sum() / prof[lane, k]),
-            "shares": [float(c / clocks.sum()) for c in clocks]}
+            "shares": [float(c / clocks.sum()) for c in clocks],
+            "scan_pops": int(prof[lane, k + 1]),
+            "scan_rounds": int(prof[lane, k + 2])}
 
 
 def schedule_one(tr, cfg: ScheduleConfig, *, device=None) -> ScheduleResult:

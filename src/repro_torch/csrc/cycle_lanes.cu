@@ -35,9 +35,11 @@
 // chain of simulated cycles bounds it: a lane runs up to ~41 000 cycles,
 // each a handful of block barriers and a few dependent L2 round trips
 // (the retire's pending-count atomics, the rank pass's reads of the ready
-// positions), plus the deferral scan, which is serial per array.  Lanes
-// are independent, so L lanes run on L SMs at once and the launch takes
-// as long as its slowest lane.
+// positions), plus the deferral scan: a round of the array's warp for
+// each issue and for each window of 32 deferrals, each round a chain of
+// dependent loads (candidate, leaf tables, port keys).  Lanes are
+// independent, so L lanes run on L SMs at once and the launch takes as
+// long as its slowest lane.
 //
 // Design: a cycle costs work in proportion to what changes in it, as the
 // reference's C loop (_cycle_loop.c:237-262) does, not to the trace size.
@@ -69,18 +71,22 @@
 //     per-class ready counts.
 //   * Candidates are laid into [A, S] slots in shared memory with their
 //     word index, load flag and latency, so the scan reads no node array.
-//   * The deferral scan runs one thread per array (arrays share no port
-//     state): the reference's lockstep scan unrolled per array.  Per-array
-//     port state (use, ruse, wuse) sits in shared memory, cleared by the
-//     whole CTA during the retire (not by each scan thread, key by key);
-//     the rest in the scan thread's registers; the remap map [A, D] is
-//     the maps output.
+//   * The deferral scan runs one warp per array (arrays share no port
+//     state; warp w takes arrays w, w + 16, ...): the reference's lockstep
+//     scan unrolled per array and resolved in rounds.  The port state does
+//     not change between two issues, so a round judges up to 32 pops at
+//     once, a lane each, and a ballot finds the first that issues; the
+//     pops before it defer in bulk (see scan_array).  Per-array port state
+//     (use, ruse, wuse) sits in shared memory, cleared by the whole CTA
+//     during the retire; the rest in the warp's registers, uniform across
+//     its lanes; the remap map [A, D] is the maps output.
 //   * Counters are summed in shared memory, double-buffered by cycle
 //     parity so that the clock step needs no trailing barrier.  Launches
 //     with record = true also write the event log (cycle, path, resource,
 //     slot per node).
 //   * A profiling instantiation (PROFILE) sums clock64() per phase per
-//     lane: retire, rank, FU issue and candidates, deferral scan, clock.
+//     lane: retire, rank, FU issue and candidates, deferral scan, clock;
+//     and counts the cycles visited and the scan's pops and rounds.
 //   * Errors as in jax_cycle.py:70: max-cycles (1), deadlock (2) and a
 //     memory op on an unconfigured array (3); a finish-wheel overflow (4)
 //     cannot happen under the host's bound.  The host raises for them.
@@ -95,6 +101,7 @@ constexpr int kInf = 0x7fffffff;
 constexpr int kFields = 13;              // descriptor row (arbiter.py F_*)
 constexpr int kFu = 7;                   // FU classes (prepared.FU_ORDER)
 constexpr int kPhases = 5;               // profiled phases (see PROFILE)
+constexpr int kProf = kPhases + 3;       // + visited cycles, scan pops, rounds
 enum { F_KIND, F_RD, F_WR, F_SLOTS, F_NBANKS, F_DEPTH, F_LEVELS, F_HALF,
        F_SUB, F_MAXFAIL, F_CONFIGURED, F_NLEAVES, F_TREE_DEPTH };
 enum { K_IDEAL, K_BANKED, K_MULTIPUMP, K_H_NTX, K_B_NTX, K_HB_NTX, K_LVT,
@@ -128,7 +135,7 @@ struct Params {
   int* err;                 // [L]
   int* maps;                // [L, A, D]
   int* events;              // [L, 4, NPAD] or null
-  long long* prof;          // [L, kPhases + 1] or null
+  long long* prof;          // [L, kProf] or null
   uint32_t* pend_ws;        // [L, pend_words]
   uint8_t* delayed_ws;      // [L, n_real]
   int* wheel_ws;            // [L, W, wheel_depth]
@@ -151,7 +158,8 @@ struct Smem {
   int* wuse;         // [A * (NB + 1)] bank writes this cycle
   int* segpre;       // [A + 8] ready count before each class segment
   int* cls_ready;    // [A + 8] ready count of each class
-  int* red;          // [4 * kWarps] block-scan scratch
+  int* red;          // [4 * kWarps] block-scan scratch; at the end, each
+                     // warp's scan pops and rounds (int64, PROFILE)
   int* ctr;          // [2 * C_N] per-cycle lane counters
   int* arr;          // [A] per-array accesses (lane totals)
   int* bcnt;         // [W] positions in each wheel bucket
@@ -213,6 +221,23 @@ __host__ __device__ inline size_t smem_layout(const Params& p, char* base,
     s->budget = reinterpret_cast<int*>(budget);
   }
   return off;
+}
+
+// Every pointer of s as base + an offset the compiler must keep in a
+// register: left to itself, the compiler recomputes the layout inside the
+// phases' loops (to relieve the deferral scan's register pressure), which
+// slowed the FU-issue phase by a tenth.
+__device__ __forceinline__ void pin(Smem& s, char* base) {
+  auto keep = [base](auto*& ptr) {
+    uint32_t off = uint32_t(reinterpret_cast<char*>(ptr) - base);
+    asm volatile("" : "+r"(off));
+    ptr = reinterpret_cast<decltype(+ptr)>(base + off);
+  };
+  keep(s.rbits); keep(s.sbits); keep(s.nz); keep(s.nzpre);
+  keep(s.cand_pos); keep(s.cand_w); keep(s.cand_x); keep(s.use);
+  keep(s.ruse); keep(s.wuse); keep(s.segpre); keep(s.cls_ready);
+  keep(s.red); keep(s.ctr); keep(s.arr); keep(s.bcnt); keep(s.bfin);
+  keep(s.budget);
 }
 
 __device__ __forceinline__ int warp_min(int v) {
@@ -286,12 +311,22 @@ __device__ __forceinline__ void retire(const Params& p, const Smem& s,
   }
 }
 
-// The deferral scan of one array for one cycle (one thread).  Exactly the
-// pop / defer / issue procedure of jax_cycle.py:243-378 for this array.
-template <bool RECORD>
+// The deferral scan of one array for one cycle, by one warp.  Exactly the
+// pop / defer / issue procedure of jax_cycle.py:243-378 for this array,
+// resolved in rounds.  Between two issues the array's port state does not
+// change, so every pop up to the next issue is judged against the same
+// state: in a round lane k judges candidate cursor + k (a window of at
+// most 32, cut where the one-pop loop would stop on its failure cap), a
+// ballot finds the first that issues, the pops before it are deferrals
+// (their failed count, first-deferral marks and stall causes in bulk),
+// and its lane applies the issue as the one-pop loop does.  The result is
+// the one-pop loop's, pop for pop; rounds number at most the issues plus
+// the windows of deferrals.  PROFILE counts the pops and rounds.
+template <bool RECORD, bool PROFILE>
 __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
-                           int a, int cycle, int ncand, uint8_t* delayed,
-                           int* events, int* wheel, int* ctr) {
+                           int a, int cycle, int ncand, int lane,
+                           uint8_t* delayed, int* events, int* wheel,
+                           int* ctr, long long& pops, long long& rounds) {
   const int* d = p.desc + (size_t(lane_id) * p.A + a) * kFields;
   const int kind = d[F_KIND];
   if (d[F_CONFIGURED] <= 0) return;
@@ -309,45 +344,61 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
   const int sub = max(d[F_SUB], 1);
   const int max_failed = d[F_MAXFAIL];
   const int nl = max(d[F_NLEAVES], 1);
-  const int npaths = 1 << d[F_LEVELS];
+  const int npaths = min(1 << d[F_LEVELS], p.PP);
+  // warp-uniform scan state
   int rd = d[F_RD], wr = d[F_WR], slots = d[F_SLOTS];
   int failed = 0, saturated = 0, mem_pa = 0;
   int n_bank = 0, n_par = 0, n_pair = 0, n_pr = 0, n_rmw = 0;
+  int wr_half0 = 0, wr_half1 = 0;
   bool stop = false, pair_used = false;
-  int wr_half[2] = {0, 0};
   uint8_t* use = s.use + size_t(a) * (p.U + 1);    // cleared in the retire
   int* ruse = s.ruse + a * (p.NB + 1);
   int* wuse = s.wuse + a * (p.NB + 1);
   int* amap = p.maps + (size_t(lane_id) * p.A + a) * p.D;
   const size_t tab = (size_t(lane_id) * p.A + a) * p.D;
 
-  for (int j = 0; j < ncand; ++j) {
+  int cursor = 0;
+  while (cursor < ncand) {
     const bool have = rd > 0 || wr > 0;
     const bool top = is_banked ? (have && saturated < n_banks &&
                                   failed < max_failed)
                    : is_simple ? (have && slots > 0)
                                : (have && failed < max_failed);
     if (stop || !top) break;
-    const int slot = a * p.S + j;
-    const int pos = s.cand_pos[slot];
-    const int w = s.cand_w[slot];
-    const bool ld = s.cand_x[slot] & 1;
-    const int nlat = s.cand_x[slot] >> 1;
-    const bool dir_defer = ld ? rd <= 0 : wr <= 0;
-    bool ok = true;
-    // values the issue needs, per kind
+    // the failures left before the one-pop loop stops (a simple kind
+    // pops once more and stops on that failure)
+    const int room = is_simple ? max(max_failed - failed, 1)
+                               : max_failed - failed;
+    const int n_win = min(min(ncand - cursor, room), 32);
+    const bool valid = lane < n_win;
+    // ---- this lane's candidate, judged against the round's port state
+    int pos = 0, w = 0, nlat = 0;
+    bool ld = false, dir_defer = true, ok = true, was_delayed = false;
     int bankb = 0, used_b = 0, a_w = 0, mb = 0, wbank = 0;
     int key1 = 0, key2 = 0, key_other = 0, tree01 = 0, soff = 0, ta = 0;
     int tree = 0;
     bool direct_free = false, first_w = false;
-    if (!dir_defer) {
+    if (valid) {
+      const int slot = a * p.S + cursor + lane;
+      pos = s.cand_pos[slot];
+      w = s.cand_w[slot];
+      const int x = s.cand_x[slot];
+      ld = x & 1;
+      nlat = x >> 1;
+      dir_defer = ld ? rd <= 0 : wr <= 0;
+    }
+    if (valid && !dir_defer) {
+      // the first-deferral flag: beside the round's other global loads
+      // where it has some (NTX, remap), else only for a deferral
+      if (is_ntx || is_remap) was_delayed = delayed[pos];
       if (is_banked) {
         bankb = fmod_pos(w, n_banks);
         used_b = ruse[bankb];
         ok = used_b < ppb;
+        if (!ok) was_delayed = delayed[pos];
       } else if (is_remap) {
         a_w = fmod_pos(w, depth);
-        mb = amap[min(a_w, p.D - 1)];
+        mb = amap[min(a_w, p.D - 1)];     // the live map, as of this round
         if (ld) {
           ok = ruse[mb] < ppb;
         } else {
@@ -365,8 +416,8 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
         a_w = fmod_pos(w, depth);
         tree = is_h ? 0 : (a_w >= half ? 1 : 0);
         ta = min(a_w - tree * half, p.D - 1);
-        const int leaf = p.direct[tab + ta];
-        soff = fmod_pos(p.offset[tab + ta], sub);
+        const int leaf = __ldg(p.direct + tab + ta);
+        soff = fmod_pos(__ldg(p.offset + tab + ta), sub);
         key1 = (tree * nl + leaf) * sub + soff;
         key2 = (2 * nl + leaf) * sub + soff;
         key_other = ((1 - tree) * nl + leaf) * sub + soff;
@@ -378,28 +429,57 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
           if (!ok) {
             bool busy = false;
             const int* pl = p.parity + (tab + ta) * p.PP;
-            for (int q = 0; q < npaths && q < p.PP; ++q) {
-              const int kt = (tree * nl + pl[q]) * sub + soff;
-              const int kr = (2 * nl + pl[q]) * sub + soff;
-              busy = busy || use[kt] || (!is_h && use[kr]);
+            for (int q = 0; q < npaths; ++q) {
+              const int leaf_q = __ldg(pl + q);
+              const int kt = (tree * nl + leaf_q) * sub + soff;
+              const int kr = (2 * nl + leaf_q) * sub + soff;
+              busy |= use[kt] || (!is_h && use[kr]);
             }
             ok = !busy;
           }
         } else {
-          first_w = wr_half[tree01] == 0;
+          first_w = (tree01 ? wr_half1 : wr_half0) == 0;
           const bool pair_ok = !pair_used && !use[key_other] && !u2;
           ok = is_h || first_w || pair_ok;
         }
       }
     }
-    const bool issue = !dir_defer && ok;
-    const bool defer = !dir_defer && !ok;
-    if (issue) {
-      if (ld) --rd; else --wr;
-      if (is_simple) --slots;
+    // ---- the first issuer; the pops before it defer
+    const uint32_t issuers = __ballot_sync(0xffffffffu,
+                                           valid && !dir_defer && ok);
+    const int n_fail = issuers ? __ffs(issuers) - 1 : n_win;
+    // cause: bank (banked/remap), parity (NTX read), pair (NTX write);
+    // the simple kinds never defer on ok
+    if (!is_simple && n_fail > 0) {
+      const bool first = lane < n_fail && !dir_defer && !was_delayed;
+      if (first) delayed[pos] = 1;
+      const uint32_t firsts = __ballot_sync(0xffffffffu, first);
+      if (!is_ntx) {
+        n_bank += __popc(firsts);
+      } else if (firsts) {
+        const int n_ld = __popc(__ballot_sync(0xffffffffu, first && ld));
+        n_par += n_ld;
+        n_pair += __popc(firsts) - n_ld;
+      }
+    }
+    failed += n_fail;
+    if (is_simple && n_fail > 0 && failed >= max_failed) stop = true;
+    cursor += n_fail;
+    if (PROFILE) {
+      pops += n_fail + (issuers != 0);
+      ++rounds;
+    }
+    if (issuers == 0) continue;
+    // ---- the issuing pop, exactly the one-pop loop's
+    const int src = n_fail;
+    const int facts = int(ld) | int(is_banked && used_b + 1 == ppb) << 1 |
+                      int(is_ntx && ld && !direct_free) << 2 |
+                      int(is_ntx && !is_h && !ld && !first_w) << 3 |
+                      int(is_ntx && !is_h && !ld) << 4 | tree01 << 5;
+    const int f = __shfl_sync(0xffffffffu, facts, src);
+    if (lane == src) {
       int path = P_DIRECT, res = -1;
       if (is_banked) {
-        saturated += (used_b + 1 == ppb);
         ruse[bankb] += 1;
         res = bankb;
       } else if (is_ntx) {
@@ -410,22 +490,16 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
             res = key1;
           } else {
             const int* pl = p.parity + (tab + ta) * p.PP;
-            for (int q = 0; q < npaths && q < p.PP; ++q) {
-              use[(tree * nl + pl[q]) * sub + soff] = 1;
-              if (!is_h) use[(2 * nl + pl[q]) * sub + soff] = 1;
+            for (int q = 0; q < npaths; ++q) {
+              use[(tree * nl + __ldg(pl + q)) * sub + soff] = 1;
+              if (!is_h) use[(2 * nl + __ldg(pl + q)) * sub + soff] = 1;
             }
-            ++n_pr;
             path = P_PARITY;
           }
-        } else if (!is_h) {
-          if (!first_w) {
-            use[key2] = 1;
-            use[key_other] = 1;
-            pair_used = true;
-            ++n_rmw;
-            path = P_PAIR_RMW;
-          }
-          wr_half[tree01] += 1;
+        } else if (!is_h && !first_w) {
+          use[key2] = 1;
+          use[key_other] = 1;
+          path = P_PAIR_RMW;
         }
       } else if (is_remap) {
         if (ld) {
@@ -450,26 +524,34 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
         events[2 * p.npad + node] = res;
         events[3 * p.npad + node] = mem_pa;
       }
-      ++mem_pa;
-    } else {
-      ++failed;
-      if (is_simple && dir_defer && failed >= max_failed) stop = true;
-      if (defer && !delayed[pos]) {
-        delayed[pos] = 1;
-        if (is_ntx) { if (ld) ++n_par; else ++n_pair; } else { ++n_bank; }
-      }
     }
+    if (f & 1) --rd; else --wr;
+    if (is_simple) --slots;
+    saturated += (f >> 1) & 1;
+    n_pr += (f >> 2) & 1;
+    if (f & 8) {
+      pair_used = true;
+      ++n_rmw;
+    }
+    if (f & 16) {
+      if (f & 32) ++wr_half1; else ++wr_half0;
+    }
+    ++mem_pa;
+    ++cursor;
+    __syncwarp();              // the issue's port state, for the next round
   }
-  if (mem_pa) {
-    atomicAdd(&ctr[C_MEM], mem_pa);
-    s.arr[a] += mem_pa;
-    s.cls_ready[a] -= mem_pa;
+  if (lane == 0) {
+    if (mem_pa) {
+      atomicAdd(&ctr[C_MEM], mem_pa);
+      s.arr[a] += mem_pa;
+      s.cls_ready[a] -= mem_pa;
+    }
+    if (n_bank) atomicAdd(&ctr[C_BANK], n_bank);
+    if (n_par) atomicAdd(&ctr[C_PARITY], n_par);
+    if (n_pair) atomicAdd(&ctr[C_PAIR], n_pair);
+    if (n_pr) atomicAdd(&ctr[C_PR], n_pr);
+    if (n_rmw) atomicAdd(&ctr[C_RMW], n_rmw);
   }
-  if (n_bank) atomicAdd(&ctr[C_BANK], n_bank);
-  if (n_par) atomicAdd(&ctr[C_PARITY], n_par);
-  if (n_pair) atomicAdd(&ctr[C_PAIR], n_pair);
-  if (n_pr) atomicAdd(&ctr[C_PR], n_pr);
-  if (n_rmw) atomicAdd(&ctr[C_RMW], n_rmw);
 }
 
 template <bool RECORD, bool PROFILE>
@@ -478,6 +560,7 @@ cycle_lanes_kernel(Params p) {
   extern __shared__ __align__(16) char smem_raw[];
   Smem s;
   smem_layout(p, smem_raw, &s);
+  pin(s, smem_raw);
   const int lane_id = blockIdx.x;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int npad = p.npad, A = p.A, S = p.S, n = p.n_real;
@@ -530,13 +613,26 @@ cycle_lanes_kernel(Params p) {
   int cycle = 0, remaining = n, err = ERR_NONE, parity = 0;
   int cnt[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   long long ph[kPhases] = {0, 0, 0, 0, 0};
-  long long visited = 0, t_mark = 0;
+  long long visited = 0, t_mark = 0, pops = 0, rounds = 0;
   if (PROFILE) t_mark = clock64();
   auto mark = [&](int phase) {
     if (PROFILE) {
       const long long t = clock64();
       ph[phase] += t - t_mark;
       t_mark = t;
+    }
+  };
+  // A block barrier that closes a phase.  A warp reads the clock after a
+  // plain barrier as soon as it arrives (the barrier blocks only at the
+  // next instruction that needs it), so the wait for the other warps
+  // would count in the next phase: under PROFILE the clock read waits
+  // for a branch on the barrier's result.
+  auto close = [&](int phase) {
+    if (PROFILE) {
+      if (__syncthreads_or(0)) ph[phase] = -1;     // never taken
+      mark(phase);
+    } else {
+      __syncthreads();
     }
   };
   __syncthreads();
@@ -566,8 +662,7 @@ cycle_lanes_kernel(Params p) {
     for (int i = tid; i < A * (p.NB + 1); i += kThreads)
       s.ruse[i] = s.wuse[i] = 0;
     if (tid < C_N) ctr[tid] = 0;
-    __syncthreads();
-    mark(0);
+    close(0);
     for (int b = tid; b < p.W; b += kThreads)
       if (s.bcnt[b] > 0 && s.bfin[b] <= cycle) s.bcnt[b] = 0;
     // every thread: the ready total and the FU issue count of this cycle
@@ -619,8 +714,7 @@ cycle_lanes_kernel(Params p) {
       // reads cls_ready again before the next retire)
       if (tid >= A && tid < A + kFu)
         s.cls_ready[tid] -= min(s.cls_ready[tid], max(s.budget[tid - A], 0));
-      __syncthreads();
-      mark(1);
+      close(1);
 
       // ---- FU issue by rank, memory candidates into slots ------------
       for (int k = warp; k < n_words; k += kWarps) {
@@ -664,17 +758,16 @@ cycle_lanes_kernel(Params p) {
         if (s.segpre[tid + 1] > s.segpre[tid] && d[F_CONFIGURED] <= 0)
           atomicOr(&ctr[C_UNCONF], 1);
       }
-      __syncthreads();
-      mark(2);
+      close(2);
 
-      // ---- the deferral scan: one thread an array ---------------------
-      if (tid < A) {
-        const int n_ready = s.segpre[tid + 1] - s.segpre[tid];
-        scan_array<RECORD>(p, s, lane_id, tid, cycle, min(n_ready, S),
-                           delayed, events, wheel, ctr);
+      // ---- the deferral scan: one warp an array ----------------------
+      for (int a = warp; a < A; a += kWarps) {
+        const int n_ready = s.segpre[a + 1] - s.segpre[a];
+        scan_array<RECORD, PROFILE>(p, s, lane_id, a, cycle,
+                                    min(n_ready, S), lane, delayed, events,
+                                    wheel, ctr, pops, rounds);
       }
-      __syncthreads();
-      mark(3);
+      close(3);
     } else {
       __syncthreads();     // the drained buckets are empty for everyone
     }
@@ -711,15 +804,28 @@ cycle_lanes_kernel(Params p) {
     mark(4);
   }
 
+  // each warp's scan pops and rounds (no thread reads red any more)
+  long long* red64 = reinterpret_cast<long long*>(s.red);
+  if (PROFILE && lane == 0) {
+    red64[warp] = pops;
+    red64[kWarps + warp] = rounds;
+  }
   __syncthreads();
   if (tid == 0) {
     p.cycles[lane_id] = cycle;
     p.err[lane_id] = err;
     for (int i = 0; i < 8; ++i) p.cnt[lane_id * 8 + i] = cnt[i];
     if (PROFILE) {
-      long long* out = p.prof + size_t(lane_id) * (kPhases + 1);
+      long long* out = p.prof + size_t(lane_id) * kProf;
       for (int i = 0; i < kPhases; ++i) out[i] = ph[i];
       out[kPhases] = visited;
+      long long all_pops = 0, all_rounds = 0;
+      for (int i = 0; i < kWarps; ++i) {
+        all_pops += red64[i];
+        all_rounds += red64[kWarps + i];
+      }
+      out[kPhases + 1] = all_pops;
+      out[kPhases + 2] = all_rounds;
     }
   }
   for (int i = tid; i < A; i += kThreads) p.per_array[lane_id * A + i] =

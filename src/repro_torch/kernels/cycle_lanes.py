@@ -493,9 +493,11 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles, direct,
     initialised by the kernel); CPU tensors run
     :func:`cycle_lanes_plain`.  ``profile=True`` (the card only, not
     with ``record``) launches the profiling instantiation and appends a
-    [L, 6] int64 tensor: the SM clocks each lane spent in its retire,
-    rank, FU issue and candidates, deferral scan and clock phases, and
-    the simulated cycles it visited."""
+    [L, 8] int64 tensor: the SM clocks each lane spent in its retire,
+    rank, FU issue and candidates, deferral scan and clock phases, the
+    simulated cycles it visited, and the candidates its deferral scan
+    popped and the rounds it took to pop them (a round judges up to 32
+    pops at once, one a thread of the array's warp)."""
     ins = (desc, fu_budgets, mem_latency, ppb, max_cycles, direct, offset,
            parity, preds_pad, lat, is_load, word_idx, perm, gid_perm,
            seg_start, x_pos, word_pos, succ_ptr, succ_pos, pend0)
@@ -544,7 +546,7 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles, direct,
     maps = torch.empty((L, A, D), dtype=I32, device=dev)
     events = (torch.empty((L, 4, NPAD), dtype=I32, device=dev) if record
               else None)
-    prof = (torch.empty((L, 6), dtype=torch.int64, device=dev) if profile
+    prof = (torch.empty((L, 8), dtype=torch.int64, device=dev) if profile
             else None)
     pend_ws = torch.empty((L, pend_words), dtype=I32, device=dev)
     delayed_ws = torch.empty((L, max(n, 1)), dtype=torch.uint8, device=dev)

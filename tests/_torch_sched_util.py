@@ -10,7 +10,8 @@ import torch
 
 from repro_torch.core.bench import get_trace
 from repro_torch.core.dse.sweep import _BASE_FU, DesignPoint, _spec_for
-from repro_torch.core.sim import ScheduleConfig, prepare_trace
+from repro_torch.core.sim import ScheduleConfig, TraceBuilder, prepare_trace
+from repro_torch.core.sim.trace import FADD, FDIV
 
 HERE = pathlib.Path(__file__).parent
 GOLDEN = json.loads((HERE / "golden_schedule.json").read_text())
@@ -32,6 +33,56 @@ DESIGNS = {
 }
 STALL_FIELDS = ("bank_conflict_stalls", "parity_fanout_stalls",
                 "write_pair_stalls", "parity_path_reads", "write_pair_rmws")
+
+
+# lanes whose cycles may pop more than one round (32 candidates) of the
+# kernel's deferral scan: scan caps of 872, 296, 32 and 16 deferrals a
+# cycle
+WIDE_DESIGNS = {
+    "hb_ntx-4R2W-b4": DesignPoint("hb_ntx", 4, 2, n_banks=4),
+    "h_ntx_rd-4R1W-b4": DesignPoint("h_ntx_rd", 4, 1, n_banks=4),
+    "remap-4R2W": DesignPoint("remap", 4, 2, 1),
+    "banked1": DesignPoint("banked", 1, 1, 1),
+}
+
+
+def wide_configs(pt, designs=tuple(WIDE_DESIGNS)) -> list:
+    """``designs`` of :data:`WIDE_DESIGNS` over every array of ``pt``,
+    at the golden matrix's unroll 1."""
+    out = []
+    for name in designs:
+        dp = WIDE_DESIGNS[name]
+        out.append(ScheduleConfig(
+            mem={aid: _spec_for(dp, pt.array_depths[aid],
+                                pt.trace.word_bytes[aid] * 8)
+                 for aid in pt.trace.array_names},
+            fu_counts=dict(_BASE_FU)))
+    return out
+
+
+def hub_trace(fan_in: int):
+    """One FADD fed by ``fan_in`` loads of one array (all ready at once,
+    ``fan_in`` candidates in the first cycle), then a store."""
+    tb = TraceBuilder("hub")
+    a = tb.declare_array("a", 4)
+    loads = [tb.load(a, i % 64) for i in range(fan_in)]
+    hub = tb.op(FADD, *loads)
+    tb.store(a, 0, (tb.op(FDIV, hub, hub),))
+    return tb.build()
+
+
+def many_arrays_trace(n_arrays: int = 20, per_array: int = 48):
+    """``n_arrays`` arrays (more than a CTA's 16 warps), each read
+    ``per_array`` times at once over 16 words and each read copied to
+    another word: every array scans many candidates in the same
+    cycles."""
+    tb = TraceBuilder("many")
+    for k in range(n_arrays):
+        a = tb.declare_array(f"a{k}", 4)
+        for i in range(per_array):
+            x = tb.load(a, (5 * i + k) % 16)
+            tb.store(a, (3 * i + k) % 16, (x,))
+    return tb.build()
 
 
 def bench_rows(bench: str) -> list:

@@ -739,10 +739,58 @@ def test_cycle_lanes_odd_sizes_and_the_widest_node(cuda, fan_in):
     _same_raw(got, _lane_call(pt, cfgs, "cpu", record=True))
 
 
+_WIDE: dict = {}
+
+
+def _wide_case(name):
+    """A trace whose cycles pop more than one round (32 candidates) of
+    the kernel's deferral scan, the wide lanes over it and the plain
+    version's raw outputs, event logs included (computed once a
+    session)."""
+    from _torch_sched_util import hub_trace, many_arrays_trace, wide_configs
+    from repro_torch.core.sim import prepare_trace
+
+    if name not in _WIDE:
+        if name == "hub":          # 1024 loads of one array ready at once
+            pt = prepare_trace(hub_trace(1024))
+            cfgs = wide_configs(pt)
+        else:
+            # 20 arrays, more than the CTA's 16 warps, so a warp scans
+            # two of them (without hb_ntx b4, whose 1024 scan slots an
+            # array would take 20 x 12 KB of shared memory)
+            pt = prepare_trace(many_arrays_trace())
+            cfgs = wide_configs(pt, ("h_ntx_rd-4R1W-b4", "remap-4R2W",
+                                     "banked1"))
+        _WIDE[name] = pt, cfgs, _lane_call(pt, cfgs, "cpu", record=True)
+    return _WIDE[name]
+
+
+@pytest.mark.parametrize("name", ["hub", "many"])
+def test_cycle_lanes_scans_wider_than_a_round(cuda, name):
+    """The warp rounds of the deferral scan give the one-pop loop's
+    result on lanes that may defer up to 872 (hb_ntx 4R2W b4), 296
+    (h_ntx_rd 4R1W b4), 32 (remap 4R2W) and 16 (banked 1) candidates a
+    cycle: raw outputs, maps and event logs bit-equal to the plain
+    version."""
+    pt, cfgs, want = _wide_case(name)
+    got = _lane_call(pt, cfgs, cuda, record=True)
+    torch.cuda.synchronize()
+    _same_raw(got, want)
+    prof = _lane_call(pt, cfgs, cuda, profile=True)
+    torch.cuda.synchronize()
+    _same_raw(prof[:5], want[:5])
+    pops, rounds = prof[5][:, 6].cpu(), prof[5][:, 7].cpu()
+    assert bool((rounds >= 1).all()) and bool((pops >= rounds).all())
+    if name == "hub":
+        # hb_ntx b4 pops its 872 deferrals a cycle 32 at a time
+        assert int(pops[0]) > 8 * int(rounds[0])
+
+
 def test_cycle_lanes_profile_and_barrier_probe(cuda):
     """The profiling instantiation schedules as the default one does
-    and counts each lane's phases and visited cycles; the barrier probe
-    gives a positive time."""
+    and counts each lane's phases, visited cycles and the deferral
+    scan's pops and warp rounds; the barrier probe gives a positive
+    time."""
     from _torch_sched_util import golden_configs
     from repro_torch.kernels.cycle_lanes import barrier_ms, cycle_lanes
 
@@ -754,9 +802,13 @@ def test_cycle_lanes_profile_and_barrier_probe(cuda):
     assert cycle_lanes.launches == launches + 2
     _same_raw(prof[:5], [t.cpu() for t in plain])
     p = prof[5].cpu()
-    assert p.shape == (len(cfgs), 6) and bool((p >= 0).all())
+    assert p.shape == (len(cfgs), 8) and bool((p >= 0).all())
     assert bool((p[:, 5] <= prof[0].cpu()).all()) and bool((p[:, 5] > 0).all())
     assert bool((p[:, :5].sum(1) > 0).all())
+    # a lane that issued memory ops popped them in at least one round
+    mem = prof[1].cpu()[:, 1] > 0
+    assert bool(mem.any()) and bool((p[mem, 7] >= 1).all())
+    assert bool((p[:, 6] >= p[:, 7]).all())
     ms, clocks = barrier_ms(cuda, iters=10_000)
     assert ms > 0 and clocks > 0
     with pytest.raises(ValueError):
@@ -783,6 +835,7 @@ def test_profile_lanes_reads_the_slowest_lane(cuda):
     assert clocks > 0 and all(c >= 0 for c in got["clocks"].values())
     assert got["clocks_per_visit"] == pytest.approx(clocks / got["visited"])
     assert sum(got["shares"]) == pytest.approx(1.0)
+    assert got["scan_pops"] >= got["scan_rounds"] >= 1
 
 
 def test_cycle_lanes_rejects_what_it_does_not_take(cuda):

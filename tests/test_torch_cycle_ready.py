@@ -21,30 +21,19 @@ import dataclasses
 import numpy as np
 import pytest
 
-from _torch_sched_util import (golden_configs, one_thread,  # noqa: F401
-                              ref_config)
+from _torch_sched_util import (golden_configs, hub_trace,
+                              one_thread, ref_config)  # noqa: F401
 from repro.core.bench import get_trace as ref_get_trace
 from repro.core.sim import prepare_trace as ref_prepare
 from repro.core.sim.scheduler import schedule_events as ref_schedule_events
 from repro_torch.core.amm.spec import AMMSpec
-from repro_torch.core.sim import ScheduleConfig, TraceBuilder, prepare_trace
+from repro_torch.core.sim import ScheduleConfig, prepare_trace
 from repro_torch.core.sim.batched_cycle import (_lane_inputs, _pack_pending,
                                                 lane_outputs)
-from repro_torch.core.sim.trace import FADD, FDIV
 from repro_torch.kernels.cycle_lanes import (ERR_DEADLOCK, ERR_MAX_CYCLES,
                                              ERR_NONE, INT32_INF)
 
 pytestmark = pytest.mark.usefixtures("one_thread")
-
-
-def _hub_trace(fan_in: int):
-    """A trace with one FADD fed by ``fan_in`` loads, then a store."""
-    tb = TraceBuilder("hub")
-    a = tb.declare_array("a", 4)
-    loads = [tb.load(a, i % 64) for i in range(fan_in)]
-    hub = tb.op(FADD, *loads)
-    tb.store(a, 0, (tb.op(FDIV, hub, hub),))
-    return tb.build()
 
 
 def _unpack(ins, sc, n):
@@ -98,7 +87,7 @@ def test_kernel_layout_matches_prepared_trace(bench):
 def test_kernel_layout_of_a_wide_node_and_the_pending_widths():
     """A node with 300 predecessors needs 16-bit counts; the packing
     is little-endian, two counts a word (four at 8 bits, one at 32)."""
-    pt = prepare_trace(_hub_trace(300))
+    pt = prepare_trace(hub_trace(300))
     cfg = ScheduleConfig(mem={0: AMMSpec("ideal", 2, 2, 64)}, fu_counts={})
     sc, _ = _check_layout(pt, [cfg])
     assert sc.pend_bits == 16
