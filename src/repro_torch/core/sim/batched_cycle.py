@@ -25,13 +25,15 @@ reference's C loop would have abandoned.
 
 ``profile_lanes`` launches the kernel's profiling instantiation and
 reads where the slowest lane spends its SM clocks.  The host's work is
-spanned (``repro_torch.tracing``: ``batch.descriptors``,
-``batch.layout``, ``batch.h2d``, ``dse.fold``, ``dse.front_cap``) and
-the lanes launched and dropped are counted.
+spanned (``repro_torch.tracing``: ``batch.descriptors`` and, inside it,
+``batch.tables``, ``batch.layout``, ``batch.h2d``, ``dse.fold``,
+``dse.front_cap``); the lanes launched and dropped, the host time of the
+per-word tables and the bytes copied to the device are counted.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Sequence
 
 import numpy as np
@@ -123,20 +125,24 @@ def _lane_inputs(pt, cfgs) -> "tuple[StaticCfg, dict]":
                "fu_budgets": np.zeros((B, len(FU_ORDER)), np.int32),
                "mem_latency": np.zeros((B,), np.int32),
                "ppb": np.zeros((B,), np.int32),
-               "max_cycles": np.zeros((B,), np.int32),
-               "direct": np.zeros((B, A, D), np.int32),
-               "offset": np.zeros((B, A, D), np.int32),
-               "parity": np.zeros((B, A, D, PP), np.int32)}
+               "max_cycles": np.zeros((B,), np.int32)}
         for b, (cfg, descs) in enumerate(zip(cfgs, all_descs)):
             mat = descriptor_matrix(descs)
             ins["desc"][b, :mat.shape[0]] = mat.astype(np.int32)
-            (ins["direct"][b], ins["offset"][b],
-             ins["parity"][b]) = descriptor_device_tables(descs, A, D, PP)
             ins["fu_budgets"][b] = [cfg.fu_counts.get(name, 1)
                                     for name in FU_ORDER]
             ins["mem_latency"][b] = cfg.mem_latency
             ins["ppb"][b] = cfg.ports_per_bank
             ins["max_cycles"][b] = min(cfg.max_cycles, INT32_INF - 64)
+        with tracing.span("batch.tables"):
+            t0 = time.perf_counter_ns()
+            ins["direct"] = np.zeros((B, A, D), np.int32)
+            ins["offset"] = np.zeros((B, A, D), np.int32)
+            ins["parity"] = np.zeros((B, A, D, PP), np.int32)
+            for b, descs in enumerate(all_descs):
+                (ins["direct"][b], ins["offset"][b], ins["parity"][b]) = \
+                    descriptor_device_tables(descs, A, D, PP)
+            tracing.count("batch.tables_ns", time.perf_counter_ns() - t0)
     for name in ("preds_pad", "lat", "is_load", "word_idx", "perm",
                  "gid_perm", "seg_start"):
         ins[name] = getattr(dv, name)
@@ -238,6 +244,7 @@ def lane_outputs(pt, sc: StaticCfg, ins: dict, device, *,
     with tracing.span("batch.h2d"):
         t = {k: torch.from_numpy(v).to(device) for k, v in ins.items()}
     tracing.count("batch.lanes", len(ins["desc"]))
+    tracing.count("batch.h2d_bytes", sum(v.nbytes for v in ins.values()))
     return ops.cycle_lanes(
         t["desc"], t["fu_budgets"], t["mem_latency"], t["ppb"],
         t["max_cycles"], t["direct"], t["offset"], t["parity"],

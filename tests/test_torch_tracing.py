@@ -1,10 +1,12 @@
 """The port's spans and counters (``repro_torch.tracing``) on the CPU.
 
 A sweep run under ``torch.profiler`` records each span of ``SPANS`` that
-its path reaches, nested in ``dse.sweep`` and once per launch or call;
+its path reaches, nested in ``dse.sweep`` (``batch.tables`` in
+``batch.descriptors``) and once per launch or call;
 the same sweep with no profiler constructs no ``record_function`` and
 returns the same points.  The counters count the lanes handed to
-``cycle_lanes`` and the lanes the front cap drops.
+``cycle_lanes``, the lanes the front cap drops, the bytes copied to the
+device and the host time of the per-word tables.
 
 The plain lanes run thousands of torch operators a simulated cycle, so
 the profiler's collection is paused inside each ``cycle_lanes`` call:
@@ -26,7 +28,7 @@ from repro_torch.core.bench import get_trace
 from repro_torch.core.dse.pareto import pareto_front
 from repro_torch.core.dse.runner import run_sweep
 from repro_torch.core.dse.sweep import DEFAULT_DESIGNS
-from repro_torch.core.sim import prepare_trace
+from repro_torch.core.sim import batched_cycle, prepare_trace
 from repro_torch.core.sim.batched_cycle import profile_lanes
 from repro_torch.kernels import ops
 
@@ -57,6 +59,23 @@ def _spans(path) -> "list[tuple[str, float, float]]":
             and e.get("name") in tracing.SPANS]
 
 
+def _profile_outside_the_kernel(monkeypatch):
+    """A CPU profile whose collection pauses inside each ``cycle_lanes``
+    call."""
+    prof = profile(activities=[ProfilerActivity.CPU])
+    kernel = ops.cycle_lanes
+
+    def quiet(*a, **k):
+        prof.toggle_collection_dynamic(False, [ProfilerActivity.CPU])
+        try:
+            return kernel(*a, **k)
+        finally:
+            prof.toggle_collection_dynamic(True, [ProfilerActivity.CPU])
+
+    monkeypatch.setattr(ops, "cycle_lanes", quiet)
+    return prof
+
+
 def _parent(child, spans):
     """The innermost other span that holds ``child``, or None."""
     name, s, e = child
@@ -76,19 +95,9 @@ def test_a_traced_sweep_records_its_spans_and_counts_its_lanes(
         _forbid_record_function(m)
         plain = _sweep(pt, designs, prune)
 
-    prof = None
-    kernel = ops.cycle_lanes
-
-    def quiet(*a, **k):
-        prof.toggle_collection_dynamic(False, [ProfilerActivity.CPU])
-        try:
-            return kernel(*a, **k)
-        finally:
-            prof.toggle_collection_dynamic(True, [ProfilerActivity.CPU])
-
-    monkeypatch.setattr(ops, "cycle_lanes", quiet)
+    prof = _profile_outside_the_kernel(monkeypatch)
     before = tracing.counts()
-    with profile(activities=[ProfilerActivity.CPU]) as prof:
+    with prof:
         traced = _sweep(pt, designs, prune)
         pareto_front(traced)
     after = tracing.counts()
@@ -110,13 +119,55 @@ def test_a_traced_sweep_records_its_spans_and_counts_its_lanes(
         want = {"dse.rank": 1, "dse.configs": 1, "dse.front_cap": 2,
                 "dse.fold": launches + 1}
     want.update({"dse.sweep": 1, "dse.pareto": 1, "batch.descriptors":
-                 launches, "batch.layout": launches, "batch.h2d": launches})
+                 launches, "batch.tables": launches,
+                 "batch.layout": launches, "batch.h2d": launches})
     assert delta["dse.sweeps"] == 1
     assert {n: sum(s[0] == n for s in spans) for n in tracing.SPANS
             if any(s[0] == n for s in spans)} == want
     for s in spans:
-        outer = None if s[0] in ("dse.sweep", "dse.pareto") else "dse.sweep"
+        outer = None if s[0] in ("dse.sweep", "dse.pareto") else \
+            "batch.descriptors" if s[0] == "batch.tables" else "dse.sweep"
         assert _parent(s, spans) == outer, s
+
+
+# an NTX and a remap design: lanes whose per-word tables hold something
+DEEP = [dp for dp in DEFAULT_DESIGNS if dp.kind in ("hb_ntx", "remap")][:2]
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_a_traced_sweep_records_the_tables_inside_the_descriptors(
+        tmp_path, monkeypatch):
+    pt = prepare_trace(get_trace("nw"))
+    prof = _profile_outside_the_kernel(monkeypatch)
+    with prof:
+        run_sweep(pt, DEEP, (1,), device="cpu")
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    spans = _spans(tmp_path / "trace.json")
+    tables = [s for s in spans if s[0] == "batch.tables"]
+    assert len(tables) == sum(s[0] == "batch.descriptors"
+                              for s in spans) >= 1
+    for s in tables:
+        assert _parent(s, spans) == "batch.descriptors", s
+
+
+def test_h2d_bytes_counts_the_arrays_lane_outputs_is_given(monkeypatch):
+    pt, _, cfgs = golden_configs("nw")
+    sc, ins = batched_cycle._lane_inputs(pt, cfgs[:3])
+    monkeypatch.setattr(ops, "cycle_lanes", lambda *a, **k: ())
+    before = tracing.counts().get("batch.h2d_bytes", 0)
+    batched_cycle.lane_outputs(pt, sc, ins, torch.device("cpu"))
+    assert tracing.counts()["batch.h2d_bytes"] - before == \
+        sum(v.nbytes for v in ins.values()) > 0
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_tables_ns_grows_with_each_sweep():
+    pt = prepare_trace(get_trace("nw"))
+    seen = [tracing.counts().get("batch.tables_ns", 0)]
+    for _ in range(2):
+        run_sweep(pt, DEEP[:1], (1,), device="cpu")
+        seen.append(tracing.counts()["batch.tables_ns"])
+    assert seen[0] < seen[1] < seen[2]
 
 
 def test_a_span_without_a_profiler_is_one_shared_no_op(monkeypatch):
