@@ -3,8 +3,8 @@
 - ``trace``         — the dynamic trace (struct of arrays + CSR preds)
 - ``prepared``      — one-time per-trace analysis and its padded device
   views
-- ``arbiter``       — per-design arbitration descriptors and NTX
-  leaf-path tables
+- ``arbiter``       — per-design arbitration descriptors and the NTX
+  leaf-path geometry (``ntx_tables``)
 - ``events``        — the per-node issue-event log
 - ``scheduler``     — ``ScheduleConfig``/``ScheduleResult``,
   ``schedule`` (one design), ``schedule_events`` (with its log) and

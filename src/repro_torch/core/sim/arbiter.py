@@ -11,12 +11,12 @@ buys its ports from an internally doubled clock rather than real wiring.
 
 This module (the descriptor half of the JAX package's
 ``core/sim/arbiter.py``) compiles an :class:`AMMSpec` into a compact
-numeric :class:`ArbDescriptor`, and exports the descriptors, their
-fixed-shape bounds and the NTX leaf-path tables as the per-design
-tensors of the batched timing backend (``core/sim/batched_cycle.py``,
-the ``cycle_lanes`` kernel and its plain version), which apply the
-per-cycle issue rules below.  The reference's pure-Python
-``PortArbiter`` is not copied yet.
+numeric :class:`ArbDescriptor`, and exports the descriptors and their
+fixed-shape bounds as the per-design tensors of the batched timing
+backend (``core/sim/batched_cycle.py``, the ``cycle_lanes`` kernel and
+its plain version), which apply the per-cycle issue rules below and
+compute each NTX word's leaf paths as :func:`ntx_tables` builds them.
+The reference's pure-Python ``PortArbiter`` is not copied yet.
 
 Per-kind issue rules (one external cycle)
 -----------------------------------------
@@ -289,30 +289,3 @@ def device_limits(descs: "list[ArbDescriptor | None]",
         elif d.kind == KIND_REMAP:
             depth = max(depth, d.depth)
     return slots, keys, banks, depth, paths
-
-
-def descriptor_device_tables(
-    descs: "list[ArbDescriptor | None]", n_arrays: int, table_depth: int,
-    parity_paths: int,
-) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Padded per-array NTX leaf-path tables for the batched backend.
-
-    Returns ``(direct, offset, parity)`` of shapes ``[n_arrays,
-    table_depth]`` / ``[n_arrays, table_depth, parity_paths]`` (int32,
-    zero where an array is not an NTX kind or beyond its tree depth) —
-    the same :func:`ntx_tables` geometry both reference loops use.
-    """
-    a = max(n_arrays, 1)
-    d_pad = max(table_depth, 1)
-    p_pad = max(parity_paths, 1)
-    direct = np.zeros((a, d_pad), np.int32)
-    offset = np.zeros((a, d_pad), np.int32)
-    parity = np.zeros((a, d_pad, p_pad), np.int32)
-    for aid, d in enumerate(descs):
-        if d is None or d.kind not in _NTX_KINDS:
-            continue
-        dr, off, par = ntx_tables(d.tree_depth, d.levels)
-        direct[aid, :d.tree_depth] = dr
-        offset[aid, :d.tree_depth] = off
-        parity[aid, :d.tree_depth, :par.shape[1]] = par
-    return direct, offset, parity

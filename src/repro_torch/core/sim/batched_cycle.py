@@ -4,9 +4,11 @@
 
 The port-constrained list scheduler is evaluated for many designs over
 the *same* trace at once: ``schedule_batched`` builds the same per-lane
-inputs as the reference (descriptor rows, FU budgets, NTX leaf-path
-tables, padded to power-of-two buckets), moves them and the trace's
-``DeviceViews`` to the device once, makes one
+inputs as the reference (descriptor rows and FU budgets, with the
+limits padded to power-of-two buckets; the kernel computes each NTX
+word's leaf paths from its array's descriptor row, so no per-word table
+is built), moves them and the trace's ``DeviceViews`` to the device
+once, makes one
 :func:`repro_torch.kernels.ops.cycle_lanes` call — on the card one
 kernel launch, one CTA per lane — and folds the results into
 :class:`ScheduleResult`/:class:`EventLog` exactly as the reference does.
@@ -25,15 +27,14 @@ reference's C loop would have abandoned.
 
 ``profile_lanes`` launches the kernel's profiling instantiation and
 reads where the slowest lane spends its SM clocks.  The host's work is
-spanned (``repro_torch.tracing``: ``batch.descriptors`` and, inside it,
-``batch.tables``, ``batch.layout``, ``batch.h2d``, ``dse.fold``,
-``dse.front_cap``); the lanes launched and dropped, the host time of the
-per-word tables and the bytes copied to the device are counted.
+spanned (``repro_torch.tracing``: ``batch.descriptors``,
+``batch.layout``, ``batch.h2d``, ``dse.fold``, ``dse.front_cap``); the
+lanes launched and dropped and the bytes copied to the device are
+counted.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Sequence
 
 import numpy as np
@@ -43,7 +44,6 @@ from repro_torch import tracing
 from repro_torch.core.sim.arbiter import (F_RD, F_WR, N_FIELDS,
                                           STALL_KEYS, _NTX_KINDS,
                                           compile_descriptors,
-                                          descriptor_device_tables,
                                           descriptor_matrix, device_limits)
 from repro_torch.core.sim.events import EventLog
 from repro_torch.core.sim.prepared import (FU_ORDER, _flatten_ranges,
@@ -68,8 +68,7 @@ class StaticCfg:
     scan_slots: int             # S: per-cycle candidate slots per array
     key_space: int              # U: NTX port-key ids per array
     bank_slots: int             # NB: bank-usage counters per array
-    table_depth: int            # D: per-word state (NTX tables, remap map)
-    parity_paths: int           # PP: widest NTX parity fan-out
+    table_depth: int            # D: per-word state (remap map, NTX clamp)
     pend_bits: int              # bits of one pending count (8, 16 or 32)
     wheel_slots: int            # W: finish-wheel buckets (pow 2 > latency)
     wheel_depth: int            # positions one bucket can hold
@@ -117,8 +116,8 @@ def _lane_inputs(pt, cfgs) -> "tuple[StaticCfg, dict]":
     with tracing.span("batch.descriptors"):
         all_descs = [compile_descriptors(c.mem, pt.n_arrays,
                                          c.ports_per_bank) for c in cfgs]
-        S, U, NB, D, PP = _bucket_limits([device_limits(d)
-                                          for d in all_descs])
+        S, U, NB, D, _ = _bucket_limits([device_limits(d)
+                                         for d in all_descs])
         A = dv.a_pad
         B = len(cfgs)
         ins = {"desc": np.zeros((B, A, N_FIELDS), np.int32),
@@ -134,15 +133,6 @@ def _lane_inputs(pt, cfgs) -> "tuple[StaticCfg, dict]":
             ins["mem_latency"][b] = cfg.mem_latency
             ins["ppb"][b] = cfg.ports_per_bank
             ins["max_cycles"][b] = min(cfg.max_cycles, INT32_INF - 64)
-        with tracing.span("batch.tables"):
-            t0 = time.perf_counter_ns()
-            ins["direct"] = np.zeros((B, A, D), np.int32)
-            ins["offset"] = np.zeros((B, A, D), np.int32)
-            ins["parity"] = np.zeros((B, A, D, PP), np.int32)
-            for b, descs in enumerate(all_descs):
-                (ins["direct"][b], ins["offset"][b], ins["parity"][b]) = \
-                    descriptor_device_tables(descs, A, D, PP)
-            tracing.count("batch.tables_ns", time.perf_counter_ns() - t0)
     for name in ("preds_pad", "lat", "is_load", "word_idx", "perm",
                  "gid_perm", "seg_start"):
         ins[name] = getattr(dv, name)
@@ -150,7 +140,7 @@ def _lane_inputs(pt, cfgs) -> "tuple[StaticCfg, dict]":
         pend_bits, wheel_slots, wheel_depth = _kernel_layout(pt, ins)
     sc = StaticCfg(n_pad=dv.n_pad, n_preds_max=dv.n_preds_max, a_pad=A,
                    scan_slots=S, key_space=U, bank_slots=NB, table_depth=D,
-                   parity_paths=PP, pend_bits=pend_bits,
+                   pend_bits=pend_bits,
                    wheel_slots=wheel_slots, wheel_depth=wheel_depth)
     return sc, ins
 
@@ -247,10 +237,10 @@ def lane_outputs(pt, sc: StaticCfg, ins: dict, device, *,
     tracing.count("batch.h2d_bytes", sum(v.nbytes for v in ins.values()))
     return ops.cycle_lanes(
         t["desc"], t["fu_budgets"], t["mem_latency"], t["ppb"],
-        t["max_cycles"], t["direct"], t["offset"], t["parity"],
-        pt.device_views().n_real, t["preds_pad"], t["lat"], t["is_load"],
-        t["word_idx"], t["perm"], t["gid_perm"], t["seg_start"],
-        t["x_pos"], t["word_pos"], t["succ_ptr"], t["succ_pos"], t["pend0"],
+        t["max_cycles"], sc.table_depth, pt.device_views().n_real,
+        t["preds_pad"], t["lat"], t["is_load"], t["word_idx"], t["perm"],
+        t["gid_perm"], t["seg_start"], t["x_pos"], t["word_pos"],
+        t["succ_ptr"], t["succ_pos"], t["pend0"],
         scan_slots=sc.scan_slots, key_space=sc.key_space,
         bank_slots=sc.bank_slots, pend_bits=sc.pend_bits,
         wheel_slots=sc.wheel_slots, wheel_depth=sc.wheel_depth,

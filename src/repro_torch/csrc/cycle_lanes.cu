@@ -30,16 +30,16 @@
 // equal to it bit for bit.
 //
 // What bounds it on this card.  Not bytes: a lane reads its trace
-// tensors and leaf tables once (under a megabyte a lane at the full DSE
-// matrix's sizes) and writes a few counters and its maps.  The serial
-// chain of simulated cycles bounds it: a lane runs up to ~41 000 cycles,
-// each a handful of block barriers and a few dependent L2 round trips
-// (the retire's pending-count atomics, the rank pass's reads of the ready
-// positions), plus the deferral scan: a round of the array's warp for
-// each issue and for each window of 32 deferrals, each round a chain of
-// dependent loads (candidate, leaf tables, port keys).  Lanes are
-// independent, so L lanes run on L SMs at once and the launch takes as
-// long as its slowest lane.
+// tensors once (under a megabyte a lane at the full DSE matrix's sizes)
+// and writes a few counters and its maps.  The serial chain of simulated
+// cycles bounds it: a lane runs up to ~49 000 cycles, each a handful of
+// block barriers and a few dependent L2 round trips (the retire's
+// pending-count atomics, the rank pass's reads of the ready positions),
+// plus the deferral scan: a round of the array's warp for each issue and
+// for each window of 32 deferrals, each round a chain of dependent
+// shared-memory loads (candidate, port keys).  Lanes are independent, so
+// L lanes run on L SMs at once and the launch takes as long as its
+// slowest lane.
 //
 // Design: a cycle costs work in proportion to what changes in it, as the
 // reference's C loop (_cycle_loop.c:237-262) does, not to the trace size.
@@ -80,6 +80,12 @@
 //     (use, ruse, wuse) sits in shared memory, cleared by the whole CTA
 //     during the retire; the rest in the warp's registers, uniform across
 //     its lanes; the remap map [A, D] is the maps output.
+//   * An NTX word's leaf paths (arbiter.ntx_tables: direct leaf, offset,
+//     parity leaves) are computed from its address and the array's tree
+//     depth and levels (ntx_walk), never loaded: the walk gives the path's
+//     level bits, and each parity leaf is a sum of three entries of one
+//     small shared table (binary digits read in base 3), so the scan's
+//     parity checks stay straight-line code.
 //   * Counters are summed in shared memory, double-buffered by cycle
 //     parity so that the clock step needs no trailing barrier.  Launches
 //     with record = true also write the event log (cycle, path, resource,
@@ -119,9 +125,6 @@ struct Params {
   const int* mem_latency;   // [L]
   const int* ppb;           // [L]
   const int* max_cycles;    // [L]
-  const int* direct;        // [L, A, D]
-  const int* offset;        // [L, A, D]
-  const int* parity;        // [L, A, D, PP]
   const int* perm;          // [NPAD] node at each position (event log)
   const int* gid_perm;      // [NPAD] class id of each position
   const int* x_pos;         // [n_real] lat << 1 | is_load by position
@@ -139,7 +142,7 @@ struct Params {
   uint32_t* pend_ws;        // [L, pend_words]
   uint8_t* delayed_ws;      // [L, n_real]
   int* wheel_ws;            // [L, W, wheel_depth]
-  int A, npad, n_real, S, U, NB, D, PP;
+  int A, npad, n_real, S, U, NB, D;
   int pend_log;             // log2(pending bits / 8): 0, 1 or 2
   int pend_words;
   int W, wheel_depth;
@@ -165,10 +168,19 @@ struct Smem {
   int* bcnt;         // [W] positions in each wheel bucket
   int* bfin;         // [W] the finish of each non-empty bucket
   int* budget;       // [kFu] FU budgets of the lane
+  int* tern;         // [1 << tern_levels(U)] x's binary digits in base 3
 };
 
 __host__ __device__ inline size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
+}
+
+// The most NTX levels k a key space of U ids can hold (3 trees of 3**k
+// leaves: 3**(k + 1) <= U), so that tern covers every array's 2**k paths.
+__host__ __device__ inline int tern_levels(int U) {
+  int k = 0;
+  for (long long keys = 9; keys <= U; keys *= 3) ++k;
+  return k;
 }
 
 // Shared-memory layout; returns the bytes used.
@@ -200,6 +212,7 @@ __host__ __device__ inline size_t smem_layout(const Params& p, char* base,
   char* bcnt = take(sizeof(int) * p.W);
   char* bfin = take(sizeof(int) * p.W);
   char* budget = take(sizeof(int) * kFu);
+  char* tern = take(sizeof(int) << tern_levels(p.U));
   if (s != nullptr) {
     s->rbits = reinterpret_cast<uint32_t*>(rbits);
     s->sbits = reinterpret_cast<uint32_t*>(sbits);
@@ -219,6 +232,7 @@ __host__ __device__ inline size_t smem_layout(const Params& p, char* base,
     s->bcnt = reinterpret_cast<int*>(bcnt);
     s->bfin = reinterpret_cast<int*>(bfin);
     s->budget = reinterpret_cast<int*>(budget);
+    s->tern = reinterpret_cast<int*>(tern);
   }
   return off;
 }
@@ -237,7 +251,7 @@ __device__ __forceinline__ void pin(Smem& s, char* base) {
   keep(s.cand_pos); keep(s.cand_w); keep(s.cand_x); keep(s.use);
   keep(s.ruse); keep(s.wuse); keep(s.segpre); keep(s.cls_ready);
   keep(s.red); keep(s.ctr); keep(s.arr); keep(s.bcnt); keep(s.bfin);
-  keep(s.budget);
+  keep(s.budget); keep(s.tern);
 }
 
 __device__ __forceinline__ int warp_min(int v) {
@@ -256,10 +270,52 @@ __device__ __forceinline__ int warp_incl_sum(int v, int lane) {
   return v;
 }
 
-// floor modulo of a non-negative-or-minus-one word index, as jnp's %
+// floor modulo of a non-negative-or-minus-one word index, as jnp's %; a
+// mask where m is a power of two (m is warp-uniform at every call)
 __device__ __forceinline__ int fmod_pos(int x, int m) {
+  if ((m & (m - 1)) == 0) return x & (m - 1);
   const int r = x % m;
   return r < 0 ? r + m : r;
+}
+
+// The direct path of in-tree address ta in an NTX tree of tree_depth
+// words and `levels` levels, as arbiter.ntx_tables builds its row ta: each
+// level halves the range (tree_depth >> (l + 1)) and gives one bit, is the
+// offset in the upper half.  Returns the bits, level 0 the highest, or -1
+// where ta >= tree_depth (the zero-padded tables held leaf 0, offset 0 and
+// parity leaves 0 there); leaf is the bits read in base 3 (tern[bits]) and
+// off what is left of ta.  Parity leaf q takes digit 2 where q has a bit
+// and the other child (1 - bit) elsewhere: tern[all] - leaf + tern[q] +
+// tern[bits & q] (parity_leaf).  Where every level splits at a bit of ta
+// (a power-of-two tree at least 2**levels deep: split = log2 of the leaf
+// depth, else -1) the bits are ta's top ones.
+__device__ __forceinline__ int ntx_walk(const int* tern, int ta,
+                                        int tree_depth, int levels,
+                                        int split, int& leaf, int& off) {
+  leaf = 0;
+  off = 0;
+  if (ta >= tree_depth) return -1;
+  if (split >= 0) {
+    off = ta & ((1 << split) - 1);
+    leaf = tern[ta >> split];
+    return ta >> split;
+  }
+  int bits = 0;
+  off = ta;
+  for (int l = 0; l < levels; ++l) {
+    const int h = tree_depth >> (l + 1);
+    const int hi = off >= h;
+    off -= hi ? h : 0;
+    bits = 2 * bits + hi;
+    leaf = 3 * leaf + hi;
+  }
+  return bits;
+}
+
+// Parity leaf q of the path ntx_walk gave: base is tern[all] - leaf.
+__device__ __forceinline__ int parity_leaf(const int* tern, int bits,
+                                           int base, int q) {
+  return bits < 0 ? 0 : base + tern[q] + tern[bits & q];
 }
 
 // The pending count of position i in a packed word (8 << pend_log bits).
@@ -344,7 +400,13 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
   const int sub = max(d[F_SUB], 1);
   const int max_failed = d[F_MAXFAIL];
   const int nl = max(d[F_NLEAVES], 1);
-  const int npaths = min(1 << d[F_LEVELS], p.PP);
+  const int tree_depth = d[F_TREE_DEPTH];
+  const int levels = d[F_LEVELS];
+  const int npaths = 1 << levels;
+  const int all_paths = s.tern[npaths - 1];        // tern[2**levels - 1]
+  const int leaf_depth = tree_depth >> levels;
+  const int split = leaf_depth > 0 && (tree_depth & (tree_depth - 1)) == 0
+                        ? __ffs(leaf_depth) - 1 : -1;
   // warp-uniform scan state
   int rd = d[F_RD], wr = d[F_WR], slots = d[F_SLOTS];
   int failed = 0, saturated = 0, mem_pa = 0;
@@ -355,7 +417,6 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
   int* ruse = s.ruse + a * (p.NB + 1);
   int* wuse = s.wuse + a * (p.NB + 1);
   int* amap = p.maps + (size_t(lane_id) * p.A + a) * p.D;
-  const size_t tab = (size_t(lane_id) * p.A + a) * p.D;
 
   int cursor = 0;
   while (cursor < ncand) {
@@ -375,8 +436,8 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
     int pos = 0, w = 0, nlat = 0;
     bool ld = false, dir_defer = true, ok = true, was_delayed = false;
     int bankb = 0, used_b = 0, a_w = 0, mb = 0, wbank = 0;
-    int key1 = 0, key2 = 0, key_other = 0, tree01 = 0, soff = 0, ta = 0;
-    int tree = 0;
+    int key1 = 0, key2 = 0, key_other = 0, tree01 = 0, soff = 0;
+    int tree = 0, path_bits = -1, pbase = 0;
     bool direct_free = false, first_w = false;
     if (valid) {
       const int slot = a * p.S + cursor + lane;
@@ -415,9 +476,11 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
       } else if (is_ntx) {
         a_w = fmod_pos(w, depth);
         tree = is_h ? 0 : (a_w >= half ? 1 : 0);
-        ta = min(a_w - tree * half, p.D - 1);
-        const int leaf = __ldg(p.direct + tab + ta);
-        soff = fmod_pos(__ldg(p.offset + tab + ta), sub);
+        int leaf, off;
+        path_bits = ntx_walk(s.tern, min(a_w - tree * half, p.D - 1),
+                             tree_depth, levels, split, leaf, off);
+        pbase = all_paths - leaf;
+        soff = fmod_pos(off, sub);
         key1 = (tree * nl + leaf) * sub + soff;
         key2 = (2 * nl + leaf) * sub + soff;
         key_other = ((1 - tree) * nl + leaf) * sub + soff;
@@ -428,9 +491,8 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
           ok = direct_free;
           if (!ok) {
             bool busy = false;
-            const int* pl = p.parity + (tab + ta) * p.PP;
             for (int q = 0; q < npaths; ++q) {
-              const int leaf_q = __ldg(pl + q);
+              const int leaf_q = parity_leaf(s.tern, path_bits, pbase, q);
               const int kt = (tree * nl + leaf_q) * sub + soff;
               const int kr = (2 * nl + leaf_q) * sub + soff;
               busy |= use[kt] || (!is_h && use[kr]);
@@ -489,10 +551,10 @@ __device__ void scan_array(const Params& p, const Smem& s, int lane_id,
             if (!is_h) use[key2] = 1;
             res = key1;
           } else {
-            const int* pl = p.parity + (tab + ta) * p.PP;
             for (int q = 0; q < npaths; ++q) {
-              use[(tree * nl + __ldg(pl + q)) * sub + soff] = 1;
-              if (!is_h) use[(2 * nl + __ldg(pl + q)) * sub + soff] = 1;
+              const int leaf_q = parity_leaf(s.tern, path_bits, pbase, q);
+              use[(tree * nl + leaf_q) * sub + soff] = 1;
+              if (!is_h) use[(2 * nl + leaf_q) * sub + soff] = 1;
             }
             path = P_PARITY;
           }
@@ -587,6 +649,11 @@ cycle_lanes_kernel(Params p) {
   for (int i = tid; i < p.W; i += kThreads) s.bcnt[i] = s.bfin[i] = 0;
   for (int i = tid; i < 2 * C_N; i += kThreads) s.ctr[i] = 0;
   if (tid < kFu) s.budget[tid] = p.fu_budgets[lane_id * kFu + tid];
+  for (int x = tid; x < 1 << tern_levels(p.U); x += kThreads) {
+    int v = 0;
+    for (int b = x, p3 = 1; b != 0; b >>= 1, p3 *= 3) v += (b & 1) * p3;
+    s.tern[x] = v;
+  }
   __syncthreads();
   // a warp's 32 consecutive positions make one bitmap word
   for (int base = warp * 32; base < w32 * 32; base += kThreads) {
@@ -869,29 +936,27 @@ extern "C" {
 // the card's 227 KB).
 int cycle_lanes_launch(const int* desc, const int* fu_budgets,
                        const int* mem_latency, const int* ppb,
-                       const int* max_cycles, const int* direct,
-                       const int* offset, const int* parity,
-                       const int* perm, const int* gid_perm,
-                       const int* x_pos, const int* word_pos,
-                       const int* succ_ptr, const int* succ_pos,
+                       const int* max_cycles, const int* perm,
+                       const int* gid_perm, const int* x_pos,
+                       const int* word_pos, const int* succ_ptr,
+                       const int* succ_pos,
                        const uint32_t* pend0, int* cycles, int* cnt,
                        int* per_array, int* err, int* maps, int* events,
                        long long* prof, uint32_t* pend_ws,
                        uint8_t* delayed_ws, int* wheel_ws, int lanes, int A,
                        int npad, int n_real, int S, int U, int NB, int D,
-                       int PP, int pend_log, int pend_words, int W,
+                       int pend_log, int pend_words, int W,
                        int wheel_depth, int record, void* stream) {
   if (lanes < 1) return 0;
-  Params p{desc, fu_budgets, mem_latency, ppb, max_cycles, direct, offset,
-           parity, perm, gid_perm, x_pos, word_pos, succ_ptr, succ_pos,
-           pend0, cycles, cnt, per_array, err, maps,
-           record ? events : nullptr, prof, pend_ws, delayed_ws, wheel_ws,
-           A, npad, n_real, S, U, NB, D, PP, pend_log, pend_words, W,
-           wheel_depth};
+  Params p{desc, fu_budgets, mem_latency, ppb, max_cycles, perm, gid_perm,
+           x_pos, word_pos, succ_ptr, succ_pos, pend0, cycles, cnt,
+           per_array, err, maps, record ? events : nullptr, prof, pend_ws,
+           delayed_ws, wheel_ws, A, npad, n_real, S, U, NB, D, pend_log,
+           pend_words, W, wheel_depth};
   const bool pow2_w = W >= 1 && (W & (W - 1)) == 0;
   if (A < 1 || A + 8 > kThreads || n_real > npad || n_real < 0 ||
       n_real > (kThreads * 32) * 32 || S < 1 || U < 1 || NB < 1 || D < 1 ||
-      PP < 1 || pend_log < 0 || pend_log > 2 ||
+      pend_log < 0 || pend_log > 2 ||
       pend_words * (4 >> pend_log) < n_real || !pow2_w || wheel_depth < 1 ||
       (record && events == nullptr) || (record && prof != nullptr) ||
       smem_layout(p, nullptr, nullptr) > 232448)

@@ -11,9 +11,12 @@ in one launch.
 Inputs (the same as the reference's ``_compiled(...)`` call):
 
 * per lane ``[L, ...]``: ``desc`` [L, A, N_FIELDS] descriptor rows,
-  ``fu_budgets`` [L, 7], ``mem_latency``/``ppb``/``max_cycles`` [L],
-  the NTX leaf-path tables ``direct``/``offset`` [L, A, D] and
-  ``parity`` [L, A, D, PP];
+  ``fu_budgets`` [L, 7], ``mem_latency``/``ppb``/``max_cycles`` [L];
+* ``table_depth`` (D): the words of per-word state, the remap live map's
+  and the clamp of an NTX in-tree address.  The NTX leaf paths of a
+  word are computed from its array's descriptor row
+  (``F_TREE_DEPTH``, ``F_LEVELS``; :func:`ntx_leaf_paths`), as rows
+  ``[0, D)`` of ``arbiter.ntx_tables`` zero-padded past the tree;
 * shared by every lane (the trace's ``DeviceViews``): ``n_real``,
   ``preds_pad`` [NPAD, P], ``lat`` [NPAD], ``is_load`` [NPAD] bool,
   ``word_idx`` [NPAD], ``perm``/``gid_perm`` [NPAD], ``seg_start``
@@ -46,7 +49,7 @@ import torch
 from repro_torch.core.sim.arbiter import (F_CONFIGURED, F_DEPTH, F_HALF,
                                           F_KIND, F_LEVELS, F_MAXFAIL,
                                           F_NBANKS, F_NLEAVES, F_RD,
-                                          F_SLOTS, F_SUB, F_WR,
+                                          F_SLOTS, F_SUB, F_TREE_DEPTH, F_WR,
                                           KIND_BANKED, KIND_H_NTX,
                                           KIND_LVT, KIND_REMAP, N_FIELDS,
                                           _NTX_KINDS)
@@ -79,12 +82,46 @@ _WINDOW = 64
 # per (lane, array) design constants
 (_C_H, _C_NTX, _C_BANKED, _C_REMAP, _C_SIMPLE, _C_LVT, _C_CONF, _C_NBANKS,
  _C_DEPTH, _C_HALF, _C_SUB, _C_MAXFAIL, _C_NL, _C_NPATHS, _C_PPB,
- _C_MLAT) = range(16)
+ _C_MLAT, _C_TREE_DEPTH, _C_LEVELS) = range(18)
+
+
+def ntx_leaf_paths(ta, tree_depth, levels, n_paths: int) -> tuple:
+    """The NTX leaf paths of in-tree address ``ta``: ``(leaf, offset,
+    parity)``, what rows ``ta`` of ``arbiter.ntx_tables(tree_depth,
+    levels)`` hold, with ``parity`` along a trailing axis of ``n_paths``
+    (a power of two, at least ``2**levels``).
+
+    Each of the ``levels`` levels halves the range (``cur >> 1``) and
+    gives one bit, whether the offset lies in the upper half; the direct
+    leaf is the bits read in base 3, and parity leaf ``q`` takes the
+    digit 2 where ``q``'s bit for the level is set, else the other
+    child's.  Where ``ta >= tree_depth`` (rows the zero-padded tables
+    held as zeros) every output is 0, as are the parity leaves past
+    ``2**levels``.  Arguments broadcast; int32 tensors."""
+    inside = ta < tree_depth
+    off = torch.where(inside, ta, 0)
+    leaf = torch.zeros_like(off)
+    cur = tree_depth
+    q = torch.arange(n_paths, dtype=I32, device=off.device)
+    parity = torch.zeros(off.shape + (n_paths,), dtype=I32,
+                         device=off.device)
+    for lvl in range(n_paths.bit_length() - 1):
+        walk = inside & (lvl < levels)
+        h = cur >> 1
+        hi = walk & (off >= h)
+        off = off - torch.where(hi, h, 0)
+        leaf = torch.where(walk, 3 * leaf + hi.to(I32), leaf)
+        cur = h
+        ref = (q >> (levels - 1 - lvl).clamp(min=0)[..., None]) & 1
+        digit = torch.where(ref > 0, 2, 1 - hi.to(I32)[..., None])
+        parity = torch.where(walk[..., None], 3 * parity + digit, parity)
+    npaths = (torch.ones_like(levels) << levels)[..., None]
+    return leaf, off, torch.where(q < npaths, parity, 0)
 
 
 def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
-                      direct, offset, parity, n_real, preds_pad, lat,
-                      is_load, word_idx, perm, gid_perm, seg_start, *,
+                      table_depth: int, n_real, preds_pad, lat, is_load,
+                      word_idx, perm, gid_perm, seg_start, *,
                       scan_slots: int, key_space: int, bank_slots: int,
                       record: bool = False) -> tuple:
     """Plain PyTorch version: the reference lane with the ``vmap`` axis
@@ -115,7 +152,7 @@ def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
     L, A = desc.shape[0], desc.shape[1]
     NPAD = perm.shape[0]
     S, U, NB = max(scan_slots, 1), max(key_space, 1), max(bank_slots, 1)
-    D, PP = direct.shape[2], parity.shape[3]
+    D = max(int(table_depth), 1)
     W = max(1, min(_WINDOW, S))
     TRASH = NPAD + 1
     desc = desc.to(I32)
@@ -128,9 +165,10 @@ def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
     lat_p = lat_i[perm_l]
     word_idx = word_idx.to(I32)
     is_load = is_load.to(torch.bool)
-    direct, offset, parity = direct.to(I32), offset.to(I32), parity.to(I32)
 
     kind = desc[..., F_KIND]
+    # the widest NTX parity fan-out of the batch
+    PP = 1 << int(desc[..., F_LEVELS].max()) if desc.numel() else 1
     is_ntx = ((kind == _NTX_KINDS[0]) | (kind == _NTX_KINDS[1])
               | (kind == _NTX_KINDS[2]))
     is_banked, is_remap = kind == KIND_BANKED, kind == KIND_REMAP
@@ -143,14 +181,13 @@ def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
         desc[..., F_NLEAVES].clamp(min=1),
         torch.ones_like(kind) << desc[..., F_LEVELS],
         ppb.to(I32)[:, None].expand(L, A),
-        mem_latency.to(I32)[:, None].expand(L, A)], -1).to(I32)
+        mem_latency.to(I32)[:, None].expand(L, A),
+        desc[..., F_TREE_DEPTH], desc[..., F_LEVELS]], -1).to(I32)
     configured = const[..., _C_CONF] > 0
     const = const.reshape(L * A, -1)
     c_conf, c_banked, c_simple = (const[:, f] > 0 for f in (
         _C_CONF, _C_BANKED, _C_SIMPLE))
     c_nbanks, c_maxfail = const[:, _C_NBANKS], const[:, _C_MAXFAIL]
-    direct_f, offset_f = direct.reshape(-1), offset.reshape(-1)
-    parity_f = parity.reshape(-1)
     ar_pp = torch.arange(PP, device=dev)
     ar_nb = torch.arange(NB, device=dev, dtype=I32)
     ar_win = torch.arange(W, device=dev)
@@ -247,7 +284,7 @@ def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
             if pair.numel() == 0:
                 break
             s = st.index_select(0, pair)                     # [M, 14]
-            cc = const.index_select(0, pair).t()[..., None]  # [16, M, 1]
+            cc = const.index_select(0, pair).t()[..., None]  # [18, M, 1]
             lane = torch.div(pair, A, rounding_mode="floor")
             is_h, ntx, banked, remap, simple = (
                 cc[f] > 0 for f in (_C_H, _C_NTX, _C_BANKED, _C_REMAP,
@@ -278,17 +315,16 @@ def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
             if any_ntx:
                 # NTX geometry: tree / in-tree address / leaf / sub-bank
                 tree = torch.where(is_h, 0, (a >= half).to(I32))
-                ta = (a - tree * half).clamp(max=D - 1).long()
-                b_d = pair[:, None] * D + ta
-                leaf = direct_f.take(b_d)
-                soff = torch.remainder(offset_f.take(b_d), sub)
+                ta = (a - tree * half).clamp(max=D - 1)
+                leaf, off, pl = ntx_leaf_paths(ta, cc[_C_TREE_DEPTH],
+                                               cc[_C_LEVELS], PP)
+                soff = torch.remainder(off, sub)
                 key1 = (tree * nl + leaf) * sub + soff
                 key2 = (2 * nl + leaf) * sub + soff
                 key_other = ((1 - tree) * nl + leaf) * sub + soff
                 u2 = use.take(b_use + key2.clamp(max=U))
                 direct_free = ~use.take(b_use + key1.clamp(max=U)) \
                     & (is_h | ~u2)
-                pl = parity_f.take(b_d[..., None] * PP + ar_pp)  # [M,W,PP]
                 pk_t = (tree[..., None] * nl[..., None] + pl) \
                     * sub[..., None] + soff[..., None]
                 pk_r = (2 * nl[..., None] + pl) * sub[..., None] \
@@ -463,7 +499,7 @@ def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
 def _launcher() -> tuple:
     lib = _build.load("cycle_lanes")
     fn = lib.cycle_lanes_launch
-    fn.argtypes = [ctypes.c_void_p] * 25 + [ctypes.c_int] * 14 + \
+    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 13 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     probe = lib.cycle_lanes_barrier_probe
@@ -472,8 +508,8 @@ def _launcher() -> tuple:
     return lib, fn
 
 
-def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles, direct,
-                offset, parity, n_real: int, preds_pad, lat, is_load,
+def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles,
+                table_depth: int, n_real: int, preds_pad, lat, is_load,
                 word_idx, perm, gid_perm, seg_start, x_pos, word_pos,
                 succ_ptr, succ_pos, pend0, *, scan_slots: int,
                 key_space: int, bank_slots: int, pend_bits: int,
@@ -498,23 +534,23 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles, direct,
     simulated cycles it visited, and the candidates its deferral scan
     popped and the rounds it took to pop them (a round judges up to 32
     pops at once, one a thread of the array's warp)."""
-    ins = (desc, fu_budgets, mem_latency, ppb, max_cycles, direct, offset,
-           parity, preds_pad, lat, is_load, word_idx, perm, gid_perm,
-           seg_start, x_pos, word_pos, succ_ptr, succ_pos, pend0)
+    ins = (desc, fu_budgets, mem_latency, ppb, max_cycles, preds_pad, lat,
+           is_load, word_idx, perm, gid_perm, seg_start, x_pos, word_pos,
+           succ_ptr, succ_pos, pend0)
     if _build.dispatch(*ins) == "cpu":
         if profile:
             raise ValueError("cycle_lanes: profile needs CUDA tensors")
         return cycle_lanes_plain(
-            desc, fu_budgets, mem_latency, ppb, max_cycles, direct, offset,
-            parity, n_real, preds_pad, lat, is_load, word_idx, perm,
-            gid_perm, seg_start, scan_slots=scan_slots, key_space=key_space,
+            desc, fu_budgets, mem_latency, ppb, max_cycles, table_depth,
+            n_real, preds_pad, lat, is_load, word_idx, perm, gid_perm,
+            seg_start, scan_slots=scan_slots, key_space=key_space,
             bank_slots=bank_slots, record=record)
     if record and profile:
         raise ValueError("cycle_lanes: record and profile are exclusive")
     dev = desc.device
     L, A = desc.shape[0], desc.shape[1]
     NPAD, P = preds_pad.shape
-    D, PP = direct.shape[2], parity.shape[3]
+    D = int(table_depth)
     n = int(n_real)
     per_word = 32 // pend_bits
     pend_words = max(1, -(-n // per_word))
@@ -523,9 +559,7 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles, direct,
             ("desc", desc, (L, A, N_FIELDS)), ("fu_budgets", fu_budgets,
                                                (L, N_FU)),
             ("mem_latency", mem_latency, (L,)), ("ppb", ppb, (L,)),
-            ("max_cycles", max_cycles, (L,)), ("direct", direct, (L, A, D)),
-            ("offset", offset, (L, A, D)), ("parity", parity,
-                                            (L, A, D, PP)),
+            ("max_cycles", max_cycles, (L,)),
             ("preds_pad", preds_pad, (NPAD, P)), ("lat", lat, (NPAD,)),
             ("word_idx", word_idx, (NPAD,)), ("perm", perm, (NPAD,)),
             ("gid_perm", gid_perm, (NPAD,)),
@@ -556,8 +590,7 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles, direct,
     with torch.cuda.device(dev):
         code = fn(desc.data_ptr(), fu_budgets.data_ptr(),
                   mem_latency.data_ptr(), ppb.data_ptr(),
-                  max_cycles.data_ptr(), direct.data_ptr(),
-                  offset.data_ptr(), parity.data_ptr(), perm.data_ptr(),
+                  max_cycles.data_ptr(), perm.data_ptr(),
                   gid_perm.data_ptr(), x_pos.data_ptr(),
                   word_pos.data_ptr(), succ_ptr.data_ptr(),
                   succ_pos.data_ptr(), pend0.data_ptr(), cycles.data_ptr(),
@@ -566,7 +599,7 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles, direct,
                   prof.data_ptr() if profile else None, pend_ws.data_ptr(),
                   delayed_ws.data_ptr(), wheel_ws.data_ptr(), L, A, NPAD, n,
                   max(scan_slots, 1), max(key_space, 1), max(bank_slots, 1),
-                  D, PP, {8: 0, 16: 1, 32: 2}[pend_bits], pend_words,
+                  D, {8: 0, 16: 1, 32: 2}[pend_bits], pend_words,
                   wheel_slots, wheel_depth, int(record),
                   _build.stream_ptr(desc))
     _build.check_status(lib, code, "cycle_lanes")

@@ -15,8 +15,6 @@ Counters are plain integers, always on, read with :func:`counts`:
 
 * ``dse.sweeps``: calls of ``runner.run_sweep``;
 * ``batch.lanes``: lanes handed to ``ops.cycle_lanes``;
-* ``batch.tables_ns``: host nanoseconds spent allocating and filling the
-  lanes' per-word NTX tables (the work of the ``batch.tables`` span);
 * ``batch.h2d_bytes``: bytes of the arrays ``lane_outputs`` copies to
   the device;
 * ``dse.front_cap.dropped``: lanes that ``schedule_front`` ran and the
@@ -31,8 +29,8 @@ import torch
 
 # every span the program records, outermost first
 SPANS = ("dse.sweep", "dse.rank", "dse.configs", "dse.front_cap",
-         "batch.descriptors", "batch.tables", "batch.layout", "batch.h2d",
-         "dse.fold", "dse.pareto")
+         "batch.descriptors", "batch.layout", "batch.h2d", "dse.fold",
+         "dse.pareto")
 
 _OFF = contextlib.nullcontext()
 _COUNTS: Counter = Counter()

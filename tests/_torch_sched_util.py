@@ -5,12 +5,15 @@ and the row check (the golden file's own tolerance: 1e-9 on
 import json
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.amm.spec import AMMSpec
 from repro_torch.core.bench import get_trace
 from repro_torch.core.dse.sweep import _BASE_FU, DesignPoint, _spec_for
 from repro_torch.core.sim import ScheduleConfig, TraceBuilder, prepare_trace
+from repro_torch.core.sim.arbiter import F_KIND, F_TREE_DEPTH, _NTX_KINDS
 from repro_torch.core.sim.trace import FADD, FDIV
 
 HERE = pathlib.Path(__file__).parent
@@ -83,6 +86,51 @@ def many_arrays_trace(n_arrays: int = 20, per_array: int = 48):
             x = tb.load(a, (5 * i + k) % 16)
             tb.store(a, (3 * i + k) % 16, (x,))
     return tb.build()
+
+
+# NTX designs (kind, reads, writes, depth) at array depths that are not
+# powers of two: trees of 100 (h_ntx_rd), 51 (b_ntx_wr) and 52 (hb_ntx)
+# words in a batch whose per-word depth D is 128
+ODD_DEPTH_SPECS = (("hb_ntx", 4, 2, 104), ("b_ntx_wr", 1, 2, 102),
+                   ("h_ntx_rd", 4, 1, 100))
+
+
+def odd_depth_trace(builder=TraceBuilder):
+    """Six rounds over one array of 104 words: 40 loads ready at once
+    (parity paths), then 8 stores fed by them (write pairs), each round
+    after the last store of the one before.  ``builder`` is the
+    ``TraceBuilder`` of the port or of the reference."""
+    tb = builder("odd_depth")
+    a = tb.declare_array("a", 4)
+    prev = ()
+    for r in range(6):
+        loads = [tb.load(a, (13 * i + 5 * r) % 104, prev)
+                 for i in range(40)]
+        stores = [tb.store(a, (29 * j + 3 * r) % 104, (loads[j],))
+                  for j in range(8)]
+        prev = (stores[-1],)
+    return tb.build()
+
+
+def odd_depth_configs(config=ScheduleConfig, spec=AMMSpec) -> list:
+    """:data:`ODD_DEPTH_SPECS` at leaf sub-banking 1 and 4 over the
+    array of :func:`odd_depth_trace` (``config`` and ``spec``: the
+    port's types or the reference's)."""
+    return [config(mem={0: spec(kind, rd, wr, depth, 32, n_banks=sub)},
+                   fu_counts={}, mem_latency=2)
+            for kind, rd, wr, depth in ODD_DEPTH_SPECS for sub in (1, 4)]
+
+
+def past_the_tree(desc: np.ndarray) -> np.ndarray:
+    """Descriptor rows whose NTX trees are cut to an odd depth below the
+    one the spec gives, so that some in-tree addresses lie past the
+    tree: rows that the zero-padded leaf tables held as zeros, which no
+    valid spec reaches (``AMMSpec`` keeps every address inside)."""
+    out = desc.copy()
+    td = out[..., F_TREE_DEPTH]
+    ntx = np.isin(out[..., F_KIND], _NTX_KINDS)
+    out[..., F_TREE_DEPTH] = np.where(ntx, td - 1 - (td & 1), td)
+    return out
 
 
 def bench_rows(bench: str) -> list:

@@ -786,6 +786,33 @@ def test_cycle_lanes_scans_wider_than_a_round(cuda, name):
         assert int(pops[0]) > 8 * int(rounds[0])
 
 
+@pytest.mark.parametrize("rows", ["spec", "past_the_tree"])
+def test_cycle_lanes_matches_plain_at_odd_depths(cuda, rows):
+    """NTX lanes at depths that are not powers of two (hb_ntx 4R2W,
+    b_ntx_wr 1R2W, h_ntx_rd 4R1W; leaf sub-banking 1 and 4), with the
+    spec's descriptor rows and with rows cut so that addresses fall past
+    the tree, where the leaf paths the kernel computes must be the zero
+    row the padded tables held: raw outputs, maps and event logs
+    bit-equal to the plain version, and the profiling instantiation
+    schedules as the default one."""
+    from _torch_sched_util import (odd_depth_configs, odd_depth_trace,
+                                   past_the_tree)
+    from repro_torch.core.sim import prepare_trace
+    from repro_torch.core.sim.batched_cycle import _lane_inputs, lane_outputs
+
+    pt = prepare_trace(odd_depth_trace())
+    sc, ins = _lane_inputs(pt, odd_depth_configs())
+    if rows == "past_the_tree":
+        ins = dict(ins, desc=past_the_tree(ins["desc"]))
+    want = lane_outputs(pt, sc, ins, "cpu", record=True)
+    got = lane_outputs(pt, sc, ins, cuda, record=True)
+    torch.cuda.synchronize()
+    _same_raw(got, want)
+    prof = lane_outputs(pt, sc, ins, cuda, profile=True)
+    torch.cuda.synchronize()
+    _same_raw(prof[:5], want[:5])
+
+
 def test_cycle_lanes_profile_and_barrier_probe(cuda):
     """The profiling instantiation schedules as the default one does
     and counts each lane's phases, visited cycles and the deferral
@@ -849,7 +876,7 @@ def test_cycle_lanes_rejects_what_it_does_not_take(cuda):
     sc, ins = _lane_inputs(pt, cfgs[:2])
     t = {k: torch.from_numpy(v).to(cuda) for k, v in ins.items()}
     args = (t["desc"], t["fu_budgets"], t["mem_latency"], t["ppb"],
-            t["max_cycles"], t["direct"], t["offset"], t["parity"],
+            t["max_cycles"], sc.table_depth,
             pt.device_views().n_real, t["preds_pad"], t["lat"],
             t["is_load"], t["word_idx"], t["perm"], t["gid_perm"],
             t["seg_start"], t["x_pos"], t["word_pos"], t["succ_ptr"],
@@ -863,7 +890,7 @@ def test_cycle_lanes_rejects_what_it_does_not_take(cuda):
         cycle_lanes(*args, scan_slots=sc.scan_slots,
                     **dict(sizes, wheel_slots=3))
     with pytest.raises(ValueError):
-        cycle_lanes(*args[:9], args[9].cpu(), *args[10:],
+        cycle_lanes(*args[:7], args[7].cpu(), *args[8:],
                     scan_slots=sc.scan_slots, **sizes)
 
 

@@ -1,12 +1,11 @@
 """The port's spans and counters (``repro_torch.tracing``) on the CPU.
 
 A sweep run under ``torch.profiler`` records each span of ``SPANS`` that
-its path reaches, nested in ``dse.sweep`` (``batch.tables`` in
-``batch.descriptors``) and once per launch or call;
+its path reaches, nested in ``dse.sweep`` and once per launch or call;
 the same sweep with no profiler constructs no ``record_function`` and
 returns the same points.  The counters count the lanes handed to
-``cycle_lanes``, the lanes the front cap drops, the bytes copied to the
-device and the host time of the per-word tables.
+``cycle_lanes``, the lanes the front cap drops and the bytes copied to
+the device, which hold no per-word table.
 
 The plain lanes run thousands of torch operators a simulated cycle, so
 the profiler's collection is paused inside each ``cycle_lanes`` call:
@@ -24,6 +23,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from _torch_sched_util import golden_configs, one_thread  # noqa: F401
 from repro_torch import tracing
+from repro_torch.core.amm.spec import AMMSpec
 from repro_torch.core.bench import get_trace
 from repro_torch.core.dse.pareto import pareto_front
 from repro_torch.core.dse.runner import run_sweep
@@ -119,35 +119,36 @@ def test_a_traced_sweep_records_its_spans_and_counts_its_lanes(
         want = {"dse.rank": 1, "dse.configs": 1, "dse.front_cap": 2,
                 "dse.fold": launches + 1}
     want.update({"dse.sweep": 1, "dse.pareto": 1, "batch.descriptors":
-                 launches, "batch.tables": launches,
-                 "batch.layout": launches, "batch.h2d": launches})
+                 launches, "batch.layout": launches, "batch.h2d": launches})
     assert delta["dse.sweeps"] == 1
     assert {n: sum(s[0] == n for s in spans) for n in tracing.SPANS
             if any(s[0] == n for s in spans)} == want
     for s in spans:
         outer = None if s[0] in ("dse.sweep", "dse.pareto") else \
-            "batch.descriptors" if s[0] == "batch.tables" else "dse.sweep"
+            "dse.sweep"
         assert _parent(s, spans) == outer, s
 
 
-# an NTX and a remap design: lanes whose per-word tables hold something
+# an NTX and a remap design: lanes with per-word state (NTX leaf paths,
+# the remap live map)
 DEEP = [dp for dp in DEFAULT_DESIGNS if dp.kind in ("hb_ntx", "remap")][:2]
 
 
 @pytest.mark.usefixtures("one_thread")
-def test_a_traced_sweep_records_the_tables_inside_the_descriptors(
-        tmp_path, monkeypatch):
+def test_a_traced_sweep_opens_no_tables_span(tmp_path, monkeypatch):
+    """The batch layer builds no per-word table, so a traced sweep over
+    NTX and remap lanes opens no span for one, and ``SPANS`` names
+    none."""
     pt = prepare_trace(get_trace("nw"))
     prof = _profile_outside_the_kernel(monkeypatch)
     with prof:
         run_sweep(pt, DEEP, (1,), device="cpu")
     prof.export_chrome_trace(str(tmp_path / "trace.json"))
-    spans = _spans(tmp_path / "trace.json")
-    tables = [s for s in spans if s[0] == "batch.tables"]
-    assert len(tables) == sum(s[0] == "batch.descriptors"
-                              for s in spans) >= 1
-    for s in tables:
-        assert _parent(s, spans) == "batch.descriptors", s
+    events = json.loads((tmp_path / "trace.json").read_text())["traceEvents"]
+    opened = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert "batch.descriptors" in opened and "batch.layout" in opened
+    assert not any("tables" in name for name in opened)
+    assert not any("tables" in name for name in tracing.SPANS)
 
 
 def test_h2d_bytes_counts_the_arrays_lane_outputs_is_given(monkeypatch):
@@ -160,14 +161,34 @@ def test_h2d_bytes_counts_the_arrays_lane_outputs_is_given(monkeypatch):
         sum(v.nbytes for v in ins.values()) > 0
 
 
-@pytest.mark.usefixtures("one_thread")
-def test_tables_ns_grows_with_each_sweep():
-    pt = prepare_trace(get_trace("nw"))
-    seen = [tracing.counts().get("batch.tables_ns", 0)]
-    for _ in range(2):
-        run_sweep(pt, DEEP[:1], (1,), device="cpu")
-        seen.append(tracing.counts()["batch.tables_ns"])
-    assert seen[0] < seen[1] < seen[2]
+def _deeper(cfg, factor: int):
+    """``cfg`` with every array's memory ``factor`` times as deep."""
+    return dataclasses.replace(cfg, mem={
+        a: AMMSpec(s.kind, s.n_read, s.n_write, s.depth * factor, s.width,
+                   n_banks=s.n_banks) for a, s in cfg.mem.items()})
+
+
+def test_h2d_bytes_do_not_grow_with_the_table_depth(monkeypatch):
+    """The same TINY nw lanes at their own memory depths and at four
+    times them: the per-word depth D grows fourfold, the bytes copied to
+    the device do not (no array handed to the op is per word), and the op
+    takes D as a number."""
+    pt, _, cfgs = golden_configs("nw")
+    cfgs = [c for c in cfgs if c.mem[0].kind in ("hb_ntx", "h_ntx_rd")]
+    calls = []
+    monkeypatch.setattr(ops, "cycle_lanes",
+                        lambda *a, **k: calls.append(a) or ())
+    moved, depths = [], []
+    for factor in (1, 4):
+        sc, ins = batched_cycle._lane_inputs(
+            pt, [_deeper(c, factor) for c in cfgs])
+        before = tracing.counts().get("batch.h2d_bytes", 0)
+        batched_cycle.lane_outputs(pt, sc, ins, torch.device("cpu"))
+        moved.append(tracing.counts()["batch.h2d_bytes"] - before)
+        depths.append(sc.table_depth)
+        assert calls[-1][5] == sc.table_depth
+    assert depths[1] == 4 * depths[0] and moved[0] == moved[1] > 0
+    assert not {"direct", "offset", "parity"} & set(ins)
 
 
 def test_a_span_without_a_profiler_is_one_shared_no_op(monkeypatch):
