@@ -82,10 +82,10 @@ fails:
    ``kernels`` line: ``ms`` is the whole matrix of (b)), its 80 event
    logs legal, and sort_merge's 80 lanes recorded on the card, equal to
    their golden rows, their event logs legal;
-   (d) ``sweep_batched`` on the card for paged_kv: its ``DSEPoint``s and
-   Pareto fronts equal to those of the golden rows through
-   ``point_from_schedule``; (e) the kernels' ``-Xptxas -v`` lines, which
-   must show no spill;
+   (d) ``evaluate_points`` over the grid on the card for paged_kv: its
+   ``DSEPoint``s and Pareto fronts equal to those of the golden rows
+   through ``point_from_schedule``; (e) the kernels' ``-Xptxas -v``
+   lines, which must show no spill;
 9. the DSE's own entry point and Fig 5: (a) the cold pass,
    ``run_sweep_bench(name, full=True)`` for the 15 benchmarks over a
    fresh cache under ``build/`` (the grid of ``benchmarks/run.py --only
@@ -216,8 +216,8 @@ fails:
    benchmarks' bands under the front cap, the 3 serving benchmarks'
    exhaustive fallbacks), each band the port's ``select_band`` of the
    grid, the returned points exactly those the cap's rule
-   (``scheduler.front_capped``) keeps on the band's golden cycles (301
-   of 340, and the 240 fallback points), every point equal to its golden
+   (``batched_cycle.front_capped``) keeps on the band's golden cycles
+   (301 of 340, and the 240 fallback points), every point equal to its golden
    row, the time/area front that of the 80 golden points; per benchmark
    the band, the points kept and capped, the launch's kernel ms against
    phase 8's 80-lane launch, its slowest lane (profiling instantiation)
@@ -360,7 +360,7 @@ SCHEDULE_FIELDS = ("cycles", "issued", "mem_issued", "bank_conflict_stalls",
                    "parity_fanout_stalls", "write_pair_stalls",
                    "parity_path_reads", "write_pair_rmws")
 PLAIN_BENCH = "bfs_queue"     # the smallest full trace: kernel vs plain
-SWEEP_BENCH = "paged_kv"      # sweep_batched on the card
+SWEEP_BENCH = "paged_kv"      # evaluate_points on the card
 CHECK_BENCH = "sort_merge"    # the largest full trace: its logs checked
 # phase 9: the benchmarks audited with event logs, and the CLI's
 AUDIT_BENCHES = ("bfs_queue", "paged_kv")
@@ -851,12 +851,13 @@ def timing_backend(dev: torch.device) -> dict:
     path: every benchmark's 80 design lanes in one ``schedule_batched``
     launch), equal to tests/golden_schedule_full.json; (c) kernel against
     plain at full width on bfs_queue, events and maps included; (d)
-    ``sweep_batched`` on the card against the golden rows folded through
-    ``point_from_schedule``; (e) no spill.  Returns the kernel's entry of
-    the ``kernels`` line."""
+    ``evaluate_points`` over the grid on the card against the golden rows
+    folded through ``point_from_schedule``; (e) no spill.  Returns the
+    kernel's entry of the ``kernels`` line."""
     from repro_torch.core.bench import BENCHMARKS, get_trace
-    from repro_torch.core.dse import pareto_front, sweep_batched
+    from repro_torch.core.dse import pareto_front
     from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
+                                            evaluate_points,
                                             schedule_config_for)
     from repro_torch.core.sim import prepare_trace
     from repro_torch.core.sim.batched_cycle import (LANE_PHASES,
@@ -999,12 +1000,15 @@ def timing_backend(dev: torch.device) -> dict:
           f"{pt.n_nodes} nodes legal: 0 violations (checked in "
           f"{check_s:.1f} s on the host CPU)")
 
-    # (d) sweep_batched on the card against the golden rows, folded
+    # (d) evaluate_points over the grid on the card against the golden
+    # rows, folded
     pt = prepared[SWEEP_BENCH]
-    points = sweep_batched(pt, device=dev)
+    points = evaluate_points(pt, [(dp, u) for dp in DEFAULT_DESIGNS
+                                  for u in DEFAULT_UNROLLS], device=dev)
     want = golden_points(pt, full)
     check(same_points(points, want),
-          f"{SWEEP_BENCH}: sweep_batched points != the golden rows' points")
+          f"{SWEEP_BENCH}: evaluate_points points != the golden rows' "
+          "points")
     fronts = {}
     for family, keep in (("all", lambda p: True), ("amm", lambda p: p.is_amm),
                          ("banked", lambda p: not p.is_amm)):
@@ -1016,7 +1020,7 @@ def timing_backend(dev: torch.device) -> dict:
                   == [(p.design, p.unroll) for p in ref],
                   f"{SWEEP_BENCH}: {family} {cost} front differs")
             fronts[f"{family}/{cost}"] = len(got)
-    print(f"schedule (d) sweep_batched {SWEEP_BENCH} on the card: "
+    print(f"schedule (d) evaluate_points {SWEEP_BENCH} on the card: "
           f"{len(points)} DSEPoints and the Pareto fronts {fronts} equal "
           "to those of the golden rows")
 
@@ -1299,9 +1303,10 @@ def pruned_sweep(dev: torch.device, kernels: dict,
                                             _point_static_cost,
                                             schedule_config_for)
     from repro_torch.core.sim import prepare_trace
-    from repro_torch.core.sim.batched_cycle import (front_eligible,
+    from repro_torch.core.sim.batched_cycle import (_lane_inputs,
+                                                    front_capped,
+                                                    front_eligible,
                                                     profile_lanes)
-    from repro_torch.core.sim.scheduler import front_capped
     from repro_torch.kernels import ops
 
     t_phase = time.perf_counter()
@@ -1338,7 +1343,8 @@ def pruned_sweep(dev: torch.device, kernels: dict,
                             [stat[i][1] for i in order[b]],
                             [want[b][i].cycles for i in order[b]],
                             lanes[b][0].max_cycles,
-                            front_eligible(pts[b], lanes[b]))
+                            front_eligible(lanes[b], _lane_inputs(
+                                pts[b], lanes[b])[1]["desc"]))
         kept[b] = sorted(i for i, k in zip(order[b], rule) if k)
     n_cal_band = sum(len(band[b]) for b in order)
     n_cal_kept = sum(len(kept[b]) for b in order)

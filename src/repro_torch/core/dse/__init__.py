@@ -1,7 +1,8 @@
 """Design-space exploration: the design templates, the costed sweep
 over ``designs x unrolls`` on the batched timing backend
 (:mod:`repro_torch.core.dse.sweep`: ``sweep``, ``evaluate_point``,
-``evaluate_points`` with the pruned sweep's front cap), the cached
+``evaluate_points`` with the pruned sweep's front cap, which the batch
+layer :mod:`repro_torch.core.sim.batched_cycle` applies), the cached
 sweep runner and its CLI (:mod:`repro_torch.core.dse.runner`) with its
 surrogate pruning (:mod:`repro_torch.core.dse.surrogate`), the Pareto
 fronts
@@ -16,11 +17,10 @@ from repro_torch.core.dse.surrogate import (DEFAULT_MARGIN, grid_predictions,
                                             predict, select_band)
 from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
                                         DesignPoint, DSEPoint,
-                                        evaluate_batched, evaluate_point,
-                                        sweep, sweep_batched)
+                                        evaluate_point, sweep)
 
 __all__ = ["DesignPoint", "DEFAULT_DESIGNS", "DEFAULT_UNROLLS", "DSEPoint",
-           "sweep", "evaluate_point", "evaluate_batched", "sweep_batched",
+           "sweep", "evaluate_point",
            "run_sweep", "run_sweep_bench", "SweepCache", "point_key",
            "grid_predictions", "select_band", "predict", "DEFAULT_MARGIN",
            "pareto_front", "cost_at_time", "design_space_expansion",

@@ -8,8 +8,9 @@ compositions.  This module is the entry point for that loop:
   (:class:`repro_torch.core.sim.prepared.PreparedTrace`).
 * **Batched evaluation** — every uncached point is scheduled by the
   batched timing backend, one ``cycle_lanes`` launch per
-  ``batch_lanes`` points (one CTA a point on the card), and costed on
-  the host (:func:`repro_torch.core.dse.sweep.evaluate_points`).
+  ``batched_cycle.BATCH_LANES`` points (one CTA a point on the card),
+  and costed on the host
+  (:func:`repro_torch.core.dse.sweep.evaluate_points`).
 * **Incremental re-sweeps** — an on-disk result cache keyed by
   ``(trace fingerprint, design, unroll, mem_latency, cache version)``
   makes re-runs and ``--full`` extensions of a previous sweep pay only
@@ -27,17 +28,18 @@ compositions.  This module is the entry point for that loop:
   front cap (:func:`repro_torch.core.dse.sweep.evaluate_points` with
   ``front_cap=True``): a miss that provably cannot reach the time/area
   front, being slower than a strictly cheaper miss, is dropped, neither
-  returned nor cached.  The returned points are the reference's, point for point, for the
-  same cache state; like the reference's they depend on that state
+  returned nor cached.  The returned points are the reference's, point
+  for point, for the same cache state; like the reference's they depend
+  on that state
   (only the misses run under the cap), and they always hold the exact
   time/area front.
 * **Audit** — ``check=True`` re-schedules the returned points with
-  event logging, one launch per ``batch_lanes`` points, and validates
-  every log with :mod:`repro_torch.core.verify`.
+  event logging (one ``schedule_batched`` call) and validates every log
+  with :mod:`repro_torch.core.verify`.
 
 The reference's process pool (``--jobs``, ``--chunk-timeout``,
 ``--chunk-retries``) and its CPU cycle-loop backends (``--backend``) are
-not here: on the card one launch takes ``batch_lanes`` points.
+not here: on the card one launch takes ``BATCH_LANES`` points.
 
 Results are deterministic: the returned list is always ordered
 ``designs``-major / ``unrolls``-minor and each point is bitwise
@@ -70,6 +72,7 @@ from repro_torch.core.dse.sweep import (DEFAULT_DESIGNS, DEFAULT_UNROLLS,
                                         DesignPoint, DSEPoint,
                                         evaluate_points,
                                         schedule_config_for)
+from repro_torch.core.sim import batched_cycle
 from repro_torch.core.sim import trace as T
 from repro_torch.core.sim.prepared import PreparedTrace, prepare_trace
 from repro_torch.device import resolve_device
@@ -242,37 +245,33 @@ def _vlog(verbose: bool, msg: str) -> None:
 
 def _legality_pass(pt: PreparedTrace, designs: Sequence[DesignPoint],
                    mem_latency: int, points: "Sequence[DSEPoint]",
-                   verbose: bool, device, batch_lanes: int) -> None:
+                   verbose: bool, device) -> None:
     """Independently re-check every sweep point's schedule legality.
 
     Each point's config is rebuilt from its design label; the points are
-    re-scheduled with issue-event logging, one ``schedule_batched``
-    launch per ``batch_lanes`` points, and each lane is validated by
-    ``repro_torch.core.verify``.  The sweep's own cycle count is
-    cross-checked against the audited run, so a stale/corrupt cache
-    entry also fails here.  Raises ``LegalityError`` on the first
-    violating point.
+    re-scheduled with issue-event logging (one ``schedule_batched``
+    call), and each lane is validated by ``repro_torch.core.verify``.
+    The sweep's own cycle count is cross-checked against the audited
+    run, so a stale/corrupt cache entry also fails here.  Raises
+    ``LegalityError`` on the first violating point.
     """
-    from repro_torch.core.sim.batched_cycle import schedule_batched
     from repro_torch.core.verify import Violation, verify_result
 
     by_label = {dp.label: dp for dp in designs}
     t0 = time.perf_counter()
-    for lo in range(0, len(points), batch_lanes):
-        chunk = points[lo:lo + batch_lanes]
-        cfgs = [schedule_config_for(pt, by_label[p.design], p.unroll,
-                                    mem_latency) for p in chunk]
-        results, logs = schedule_batched(pt, cfgs, device=device,
-                                         collect_events=True)
-        for p, cfg, res, ev in zip(chunk, cfgs, results, logs):
-            rep = verify_result(pt, cfg, res, ev, backend=str(device))
-            if res.cycles != p.cycles:
-                rep.violations.append(Violation(
-                    "counter",
-                    f"sweep point {p.design}@u{p.unroll} reports "
-                    f"{p.cycles} cycles but the audited re-run took "
-                    f"{res.cycles}"))
-            rep.raise_if_failed()
+    cfgs = [schedule_config_for(pt, by_label[p.design], p.unroll,
+                                mem_latency) for p in points]
+    results, logs = batched_cycle.schedule_batched(pt, cfgs, device=device,
+                                                   collect_events=True)
+    for p, cfg, res, ev in zip(points, cfgs, results, logs):
+        rep = verify_result(pt, cfg, res, ev, backend=str(device))
+        if res.cycles != p.cycles:
+            rep.violations.append(Violation(
+                "counter",
+                f"sweep point {p.design}@u{p.unroll} reports "
+                f"{p.cycles} cycles but the audited re-run took "
+                f"{res.cycles}"))
+        rep.raise_if_failed()
     _vlog(verbose,
           f"{pt.trace.name}: legality-checked {len(points)} points in "
           f"{time.perf_counter() - t0:.3f}s (0 violations)")
@@ -280,7 +279,7 @@ def _legality_pass(pt: PreparedTrace, designs: Sequence[DesignPoint],
 
 def _evaluate(pt: PreparedTrace, grid: "list[tuple[DesignPoint, int]]",
               mem_latency: int, cache: "SweepCache | None", verbose: bool,
-              dev, batch_lanes: int, front_cap: bool = False
+              dev, front_cap: bool = False
               ) -> "list[DSEPoint | None]":
     """The points of ``grid``, in its order: cache hits as they are, the
     misses scheduled by :func:`evaluate_points` and stored.  With
@@ -297,8 +296,7 @@ def _evaluate(pt: PreparedTrace, grid: "list[tuple[DesignPoint, int]]",
     if todo:
         t0 = time.perf_counter()
         fresh = evaluate_points(pt, [grid[i] for i in todo], mem_latency,
-                                front_cap=front_cap, device=dev,
-                                batch_lanes=batch_lanes)
+                                front_cap=front_cap, device=dev)
         for i, p in zip(todo, fresh):
             results[i] = p
             if cache and p is not None:
@@ -307,7 +305,7 @@ def _evaluate(pt: PreparedTrace, grid: "list[tuple[DesignPoint, int]]",
         _vlog(verbose,
               f"{pt.trace.name}: simulated {len(todo) - capped} points "
               f"({capped} front-capped, {len(grid) - len(todo)} cache hits) "
-              f"in {-(-len(todo) // batch_lanes)} launches, "
+              f"in {-(-len(todo) // batched_cycle.BATCH_LANES)} launches, "
               f"{time.perf_counter() - t0:.3f}s")
     return results
 
@@ -315,11 +313,10 @@ def _evaluate(pt: PreparedTrace, grid: "list[tuple[DesignPoint, int]]",
 def _run_pruned(pt: PreparedTrace, designs: Sequence[DesignPoint],
                 unrolls: "tuple[int, ...]", mem_latency: int,
                 cache: "SweepCache | None", margin: "float | None",
-                verbose: bool, dev, batch_lanes: int) -> list[DSEPoint]:
+                verbose: bool, dev) -> list[DSEPoint]:
     """Surrogate-pruned sweep: rank the grid on the host, keep the
     predicted Pareto band and evaluate it as :func:`_evaluate` does,
-    its misses under the front cap (one launch per ``batch_lanes``
-    misses, in ascending-area order).
+    its misses under the front cap (in ascending-area order).
 
     Returns the retained points (a designs-major subsequence of the
     grid), as the reference's ``runner.py:337-397`` does: the hits, and
@@ -343,7 +340,7 @@ def _run_pruned(pt: PreparedTrace, designs: Sequence[DesignPoint],
           f"(margin {margin:g})")
     band = [(p.design, p.unroll) for p, k in zip(preds, keep) if k]
     return [p for p in _evaluate(pt, band, mem_latency, cache, verbose, dev,
-                                 batch_lanes, front_cap=True)
+                                 front_cap=True)
             if p is not None]
 
 
@@ -384,7 +381,6 @@ def run_sweep(
     check: bool = False,
     verbose: bool = False,
     device=None,
-    batch_lanes: int = 256,
 ) -> list[DSEPoint]:
     """Evaluate every ``(design, unroll)`` composition on one trace.
 
@@ -399,12 +395,11 @@ def run_sweep(
       prune: ``"surrogate"`` ranks the grid with the analytic cycle
         predictor on the host and schedules only the predicted Pareto
         band (:func:`repro_torch.core.dse.surrogate.select_band`), its
-        cache misses under the front cap, one ``cycle_lanes`` launch per
-        ``batch_lanes`` misses.  Returns a designs-major *subsequence*
-        of the band whose time/area Pareto front is the exhaustive one,
-        the reference's points for the same cache state; each point is
-        bitwise identical to the exhaustive sweep's (and shares its
-        cache entries).  The surrogate is calibrated at
+        cache misses under the front cap.  Returns a designs-major
+        *subsequence* of the band whose time/area Pareto front is the
+        exhaustive one, the reference's points for the same cache
+        state; each point is bitwise identical to the exhaustive sweep's
+        (and shares its cache entries).  The surrogate is calibrated at
         ``mem_latency == 2`` on the MachSuite trace families
         (``surrogate.CALIBRATED_BENCHES``); other latencies and the
         serving benches run the exhaustive grid.
@@ -426,8 +421,6 @@ def run_sweep(
         the surrogate's band or why it fell back).
       device: ``None`` runs the ``cycle_lanes`` kernel on the CUDA device
         (and raises without one); ``"cpu"`` runs its plain version.
-      batch_lanes: points per ``cycle_lanes`` launch (bounds one
-        launch's device memory).
     """
     if prune not in (None, "surrogate"):
         raise ValueError(f"prune must be None or 'surrogate', got {prune!r}")
@@ -442,14 +435,13 @@ def run_sweep(
         if prune == "surrogate" and not _prune_falls_back(pt, mem_latency,
                                                           verbose):
             results = _run_pruned(pt, designs, unrolls, mem_latency, cache,
-                                  margin, verbose, dev, batch_lanes)
+                                  margin, verbose, dev)
         else:
             results = _evaluate(pt, [(dp, u) for dp in designs
                                      for u in unrolls],
-                                mem_latency, cache, verbose, dev, batch_lanes)
+                                mem_latency, cache, verbose, dev)
         if check:
-            _legality_pass(pt, designs, mem_latency, results, verbose, dev,
-                           batch_lanes)
+            _legality_pass(pt, designs, mem_latency, results, verbose, dev)
         return _attach_faults(results, designs, faults, dev)
 
 
@@ -470,7 +462,6 @@ def run_sweep_bench(
     verbose: bool = False,
     stats: "dict | None" = None,
     device=None,
-    batch_lanes: int = 256,
 ) -> list[DSEPoint]:
     """Sweep a registered benchmark by name, with a cold fast path.
 
@@ -527,8 +518,7 @@ def run_sweep_bench(
         stats["prepared"] = pt
     res = run_sweep(pt, designs, unrolls, mem_latency=mem_latency,
                     cache=cache, prune=prune, margin=margin, faults=faults,
-                    check=check, verbose=verbose, device=dev,
-                    batch_lanes=batch_lanes)
+                    check=check, verbose=verbose, device=dev)
     if cache is not None:
         cache.manifest_put(bkey, pt.fingerprint)
     return res

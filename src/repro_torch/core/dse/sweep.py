@@ -12,15 +12,13 @@ The names here are copies of the JAX package's ``core/dse/sweep.py``
 :class:`DSEPoint`, :func:`schedule_config_for`,
 :func:`point_from_schedule`; ``tests/test_torch_fault.py`` and
 ``tests/test_torch_sched_copies.py`` hold them equal to the reference),
-plus :func:`evaluate_batched`, the port's point evaluation: any list of
-``(design, unroll)`` points of one trace scheduled by the batched timing
-backend, one ``cycle_lanes`` launch per ``batch_lanes`` points, and
-:func:`sweep_batched`, the whole ``designs x unrolls`` grid through it.
-The reference's public functions over the same backend:
-:func:`evaluate_point`, :func:`evaluate_points` (with the front cap of
-the pruned sweep, its static costs from :func:`_point_static_cost`, a
-copy of the reference's) and :func:`sweep`, over the cached sweep runner
-:mod:`repro_torch.core.dse.runner`.
+and the reference's public functions over the batched timing backend:
+:func:`evaluate_points`, any list of ``(design, unroll)`` points of one
+trace scheduled by ``scheduler.schedule_batch`` and costed on the host
+(with the front cap of the pruned sweep, its static costs from
+:func:`_point_static_cost`, a copy of the reference's),
+:func:`evaluate_point`, a list of one, and :func:`sweep`, over the
+cached sweep runner :mod:`repro_torch.core.dse.runner`.
 """
 from __future__ import annotations
 
@@ -33,11 +31,11 @@ from repro_torch.core.cost import (FU_AREA_MM2, FU_LEAK_MW, FU_POWER_MW,
                                    memory_cost)
 from repro_torch.core.sim.arbiter import STALL_KEYS
 from repro_torch.core.sim.prepared import prepare_trace
-from repro_torch.core.sim.scheduler import ScheduleConfig
+from repro_torch.core.sim.scheduler import ScheduleConfig, schedule_batch
 
 __all__ = ["DesignPoint", "DEFAULT_DESIGNS", "DEFAULT_UNROLLS", "DSEPoint",
-           "schedule_config_for", "point_from_schedule", "evaluate_batched",
-           "sweep_batched", "evaluate_point", "evaluate_points", "sweep"]
+           "schedule_config_for", "point_from_schedule", "evaluate_point",
+           "evaluate_points", "sweep"]
 
 # ScheduleResult / DSEPoint stall-field names, in STALL_KEYS order
 _STALL_FIELDS = tuple(f"{k}_stalls" for k in STALL_KEYS)
@@ -231,85 +229,43 @@ def point_from_schedule(tr, dp: DesignPoint, unroll: int,
     )
 
 
-def evaluate_batched(tr, grid: "Sequence[tuple[DesignPoint, int]]", *,
-                     mem_latency: int = 2, device=None,
-                     batch_lanes: int = 256) -> list[DSEPoint]:
-    """Evaluate the ``(design, unroll)`` points of ``grid`` on one trace
-    with the batched timing backend: one ``cycle_lanes`` launch per
-    ``batch_lanes`` points (``schedule_config_for`` ->
-    ``schedule_batched``), each result costed on the host by
-    :func:`point_from_schedule`.  Points come back in ``grid`` order.
-    ``batch_lanes`` only bounds the device memory of one launch (the
-    lanes' workspace grows with the trace); the kernel takes any lane
-    count.  ``device=None`` runs on the CUDA device, ``device="cpu"`` on
-    the kernel's plain version."""
-    from repro_torch.core.sim.batched_cycle import schedule_batched
-
-    pt = prepare_trace(tr)
-    points: list[DSEPoint] = []
-    for lo in range(0, len(grid), batch_lanes):
-        chunk = grid[lo:lo + batch_lanes]
-        with tracing.span("dse.configs"):
-            cfgs = [schedule_config_for(pt, dp, u, mem_latency)
-                    for dp, u in chunk]
-        scheds = schedule_batched(pt, cfgs, device=device)
-        with tracing.span("dse.fold"):
-            points += [point_from_schedule(pt, dp, u, cfg, res)
-                       for (dp, u), cfg, res in zip(chunk, cfgs, scheds)]
-    return points
-
-
-def sweep_batched(tr, designs: Sequence[DesignPoint] = DEFAULT_DESIGNS,
-                  unrolls: Iterable[int] = DEFAULT_UNROLLS, *,
-                  mem_latency: int = 2, device=None,
-                  batch_lanes: int = 256) -> list[DSEPoint]:
-    """Evaluate ``designs x unrolls`` on one trace with
-    :func:`evaluate_batched` (the default grid, 80 points, is one
-    launch).
-
-    Points come back ``designs``-major, ``unrolls``-minor, as the
-    reference's ``run_sweep`` orders them.  ``device=None`` runs on the
-    CUDA device, ``device="cpu"`` on the kernel's plain version."""
-    grid = [(dp, u) for dp in designs for u in unrolls]
-    return evaluate_batched(tr, grid, mem_latency=mem_latency,
-                            device=device, batch_lanes=batch_lanes)
-
-
 def evaluate_point(tr, dp: DesignPoint, unroll: int, mem_latency: int = 2,
                    *, device=None) -> DSEPoint:
     """One ``(design, unroll)`` point of one trace, costed: a batch of
     one on the batched timing backend.  ``device`` as for
-    :func:`evaluate_batched`."""
-    return evaluate_batched(tr, [(dp, unroll)], mem_latency=mem_latency,
-                            device=device)[0]
+    :func:`evaluate_points`."""
+    return evaluate_points(tr, [(dp, unroll)], mem_latency,
+                           device=device)[0]
 
 
 def evaluate_points(tr, points: "Sequence[tuple[DesignPoint, int]]",
                     mem_latency: int = 2, *, front_cap: bool = False,
-                    device=None, batch_lanes: int = 256
-                    ) -> "list[DSEPoint | None]":
+                    device=None) -> "list[DSEPoint | None]":
     """Evaluate many ``(design, unroll)`` points of one trace, in input
-    order: :func:`evaluate_batched`, one launch per ``batch_lanes``
-    points.
+    order: their configs scheduled by ``scheduler.schedule_batch`` (one
+    ``cycle_lanes`` launch per ``batched_cycle.BATCH_LANES`` points),
+    each result costed on the host by :func:`point_from_schedule`.
+    ``device=None`` runs on the CUDA device, ``device="cpu"`` on the
+    kernel's plain version.
 
     With ``front_cap=True`` the points run in stable ascending-area
     order (their static costs, :func:`_point_static_cost`), and a point
     is ``None`` where the reference's C loop abandons it once its time
     provably exceeds that of a strictly cheaper completed point (it
-    cannot be on the time/area front): ``schedule_batch(front_cap=True)``.
-    More than ``batch_lanes`` points go out in ascending-area launches,
-    and the rule runs once over all of them, as the reference's cap spans
-    its whole C call.  The surviving points hold every member of the
-    exact time/area front, each bitwise equal to its exhaustive point."""
-    from repro_torch.core.sim.scheduler import schedule_batch
-
-    if not front_cap:
-        return evaluate_batched(tr, points, mem_latency=mem_latency,
-                                device=device, batch_lanes=batch_lanes)
+    cannot be on the time/area front); the rule runs once over all of
+    them, as the reference's cap spans its whole C call.  The surviving
+    points hold every member of the exact time/area front, each bitwise
+    equal to its exhaustive point."""
     pt = prepare_trace(tr)
     with tracing.span("dse.configs"):
         cfgs = [schedule_config_for(pt, dp, u, mem_latency)
                 for dp, u in points]
+    if not front_cap:
+        results = schedule_batch(pt, cfgs, device=device)
+        with tracing.span("dse.fold"):
+            return [point_from_schedule(pt, dp, u, cfg, res)
+                    for (dp, u), cfg, res in zip(points, cfgs, results)]
+
     with tracing.span("dse.front_cap"):
         statics = [_point_static_cost(cfg, u)
                    for cfg, (_, u) in zip(cfgs, points)]
@@ -318,7 +274,7 @@ def evaluate_points(tr, points: "Sequence[tuple[DesignPoint, int]]",
         pt, [cfgs[i] for i in order],
         areas=[statics[i][0] for i in order],
         cycle_ns=[statics[i][1] for i in order],
-        front_cap=True, device=device, batch_lanes=batch_lanes)
+        front_cap=True, device=device)
     out: "list[DSEPoint | None]" = [None] * len(points)
     with tracing.span("dse.fold"):
         for rank, i in enumerate(order):

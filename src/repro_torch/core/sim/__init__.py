@@ -10,7 +10,9 @@
   ``schedule`` (one design), ``schedule_events`` (with its log) and
   ``schedule_batch`` (many, with the pruned sweep's front cap)
 - ``batched_cycle`` — the batched timing backend: every design lane of
-  a grid in one ``cycle_lanes`` kernel launch
+  a grid in one ``cycle_lanes`` kernel launch (up to ``BATCH_LANES``
+  lanes a launch), and the front cap's rule (``front_capped``,
+  ``front_eligible``, ``schedule_front``)
 """
 from repro_torch.core.sim.arbiter import (STALL_KEYS, ArbDescriptor,
                                           compile_spec, ntx_tables)

@@ -20,10 +20,12 @@ arbitration rules follow the ``ArbDescriptor`` fields and the
 attribution and the idle-cycle jump are unchanged.  The port is held to
 ``tests/golden_schedule.json`` and to the reference's C loop.
 
+A call takes any number of configs: one loop (:func:`_launches`) runs
+them in launches of at most :data:`BATCH_LANES` lanes.
 ``schedule_front`` runs a batch under the reference's front cap (the
-pruned sweep's): every lane runs to completion and
-``scheduler.front_capped`` drops, on the host, the points the
-reference's C loop would have abandoned.
+pruned sweep's): every lane runs to completion and :func:`front_capped`
+drops, on the host, the points the reference's C loop would have
+abandoned (:func:`front_eligible` says which take part).
 
 ``profile_lanes`` launches the kernel's profiling instantiation and
 reads where the slowest lane spends its SM clocks.  The host's work is
@@ -41,21 +43,28 @@ import numpy as np
 import torch
 
 from repro_torch import tracing
-from repro_torch.core.sim.arbiter import (F_RD, F_WR, N_FIELDS,
-                                          STALL_KEYS, _NTX_KINDS,
+from repro_torch.core.sim.arbiter import (F_KIND, F_LEVELS, F_RD, F_WR,
+                                          N_FIELDS, STALL_KEYS, _NTX_KINDS,
                                           compile_descriptors,
                                           descriptor_matrix, device_limits)
 from repro_torch.core.sim.events import EventLog
 from repro_torch.core.sim.prepared import (FU_ORDER, _flatten_ranges,
                                            _next_pow2, prepare_trace)
-from repro_torch.core.sim.scheduler import (_MAX_C_PARITY_PATHS,
-                                            ScheduleConfig, ScheduleResult,
-                                            front_capped)
+from repro_torch.core.sim.scheduler import ScheduleConfig, ScheduleResult
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.cycle_lanes import (ERR_DEADLOCK, ERR_MAX_CYCLES,
                                              ERR_UNCONFIGURED, ERR_WHEEL,
                                              INT32_INF, _steer)
+
+# the most lanes one launch takes: it bounds one launch's device memory
+# (the lanes' workspace grows with the trace); the kernel takes any count
+BATCH_LANES = 256
+
+# an NTX descriptor with more parity paths than this runs, in the
+# reference, in its Python loop, which knows no front cap
+# (``scheduler.py:56``, ``:322-327``)
+_MAX_C_PARITY_PATHS = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -278,11 +287,37 @@ def _result(pt, b: int, cycles, cnt, per_array) -> ScheduleResult:
     )
 
 
+def _launches(pt, cfgs: "list[ScheduleConfig]", dev, *, maps: bool,
+              record: bool = False):
+    """``cfgs`` in ``cycle_lanes`` launches of at most
+    :data:`BATCH_LANES` lanes, in order.  Yields, per launch, the index of
+    its first config, its :class:`StaticCfg` and inputs, and its outputs
+    copied to the host: cycles, counters, per-array accesses and error
+    codes, then the remap live maps with ``maps`` and the event log with
+    ``record``."""
+    for lo in range(0, len(cfgs), BATCH_LANES):
+        sc, ins = _lane_inputs(pt, cfgs[lo:lo + BATCH_LANES])
+        out = lane_outputs(pt, sc, ins, dev, record=record)
+        copied = out[:5 if maps else 4] + (out[5:6] if record else ())
+        yield lo, sc, ins, [o.cpu().numpy() for o in copied]
+
+
+def _stack_maps(maps: "list[np.ndarray]") -> np.ndarray:
+    """The launches' remap live maps as one ``[batch, a_pad, D]`` array,
+    each zero-padded to the widest ``D``, as a launch pads its lanes."""
+    if len(maps) == 1:
+        return maps[0]
+    depth = max(m.shape[2] for m in maps)
+    return np.concatenate([np.pad(m, ((0, 0), (0, 0),
+                                      (0, depth - m.shape[2])))
+                           for m in maps])
+
+
 def schedule_batched(tr, cfgs: "Sequence[ScheduleConfig]", *, device=None,
                      return_maps: bool = False,
                      collect_events: bool = False):
-    """Run the cycle-accurate scheduler for many designs in one
-    ``cycle_lanes`` call.
+    """Run the cycle-accurate scheduler for many designs, one
+    ``cycle_lanes`` launch per :data:`BATCH_LANES` of them.
 
     Every ``cfg`` is one design point over the *same* trace (a ``Trace``
     or ``PreparedTrace``).  Returns ``list[ScheduleResult]`` in ``cfgs``
@@ -291,8 +326,6 @@ def schedule_batched(tr, cfgs: "Sequence[ScheduleConfig]", *, device=None,
     ``[batch, a_pad, table_depth]``; with ``collect_events=True`` also a
     list of per-config :class:`EventLog` (the recording variant runs).
     ``device=None`` means the CUDA device."""
-    dev = resolve_device(device)
-    pt = prepare_trace(tr)
     cfgs = list(cfgs)
     if not cfgs:
         empty: tuple = ([],)
@@ -301,83 +334,133 @@ def schedule_batched(tr, cfgs: "Sequence[ScheduleConfig]", *, device=None,
         if collect_events:
             empty = empty + ([],)
         return empty if len(empty) > 1 else empty[0]
+    dev = resolve_device(device)
+    pt = prepare_trace(tr)
 
-    sc, ins = _lane_inputs(pt, cfgs)
-    out = lane_outputs(pt, sc, ins, dev, record=collect_events)
-    cycles, cnt, per_array, err, maps = (o.cpu().numpy() for o in out[:5])
-    ev = out[5].cpu().numpy() if collect_events else None
-
-    with tracing.span("dse.fold"):
-        for b, cfg in enumerate(cfgs):
-            _raise_for(int(err[b]), cfg, sc)
-        results = [_result(pt, b, cycles, cnt, per_array)
-                   for b in range(len(cfgs))]
-        ret: tuple = (results,)
-        if return_maps:
-            ret = ret + (maps,)
-        if collect_events:
-            n = pt.trace.n_nodes
-            ret = ret + ([EventLog(cycle=ev[b, 0, :n].astype(np.int64),
-                                   path=ev[b, 1, :n].astype(np.int64),
-                                   resource=ev[b, 2, :n].astype(np.int64),
-                                   slot=ev[b, 3, :n].astype(np.int64))
-                          for b in range(len(cfgs))],)
+    results: "list[ScheduleResult]" = []
+    maps: "list[np.ndarray]" = []
+    logs: "list[EventLog]" = []
+    n = pt.trace.n_nodes
+    for lo, sc, _, out in _launches(pt, cfgs, dev, maps=True,
+                                    record=collect_events):
+        cycles, cnt, per_array, err, live = out[:5]
+        with tracing.span("dse.fold"):
+            for b, cfg in enumerate(cfgs[lo:lo + len(err)]):
+                _raise_for(int(err[b]), cfg, sc)
+            results += [_result(pt, b, cycles, cnt, per_array)
+                        for b in range(len(err))]
+            maps.append(live)
+            if collect_events:
+                ev = out[5]
+                logs += [EventLog(cycle=ev[b, 0, :n].astype(np.int64),
+                                  path=ev[b, 1, :n].astype(np.int64),
+                                  resource=ev[b, 2, :n].astype(np.int64),
+                                  slot=ev[b, 3, :n].astype(np.int64))
+                         for b in range(len(err))]
+    ret: tuple = (results,)
+    if return_maps:
+        ret = ret + (_stack_maps(maps),)
+    if collect_events:
+        ret = ret + (logs,)
     return ret if len(ret) > 1 else ret[0]
 
 
-def front_eligible(pt, cfgs: "Sequence[ScheduleConfig]") -> np.ndarray:
+def front_eligible(cfgs: "Sequence[ScheduleConfig]",
+                   desc: np.ndarray) -> np.ndarray:
     """Which configs take part in the front cap, as in the reference's
-    C batch loop: none when the batch mixes ``ports_per_bank`` or
-    ``max_cycles`` (the reference then runs every config in its Python
-    loop), else every config whose NTX descriptors have at most
-    ``_MAX_C_PARITY_PATHS`` parity paths (``scheduler.py:313-327``)."""
+    C batch loop, read from their descriptor rows ``desc`` [batch, a_pad,
+    N_FIELDS] (``_lane_inputs``' ``desc``): none when the batch mixes
+    ``ports_per_bank`` or ``max_cycles`` (the reference then runs every
+    config in its Python loop), else every config whose NTX descriptors
+    have at most ``_MAX_C_PARITY_PATHS`` parity paths
+    (``scheduler.py:313-327``)."""
     if any(c.ports_per_bank != cfgs[0].ports_per_bank
            or c.max_cycles != cfgs[0].max_cycles for c in cfgs):
         return np.zeros(len(cfgs), bool)
-    return np.array([not any(
-        d is not None and d.kind in _NTX_KINDS
-        and (1 << d.levels) > _MAX_C_PARITY_PATHS
-        for d in compile_descriptors(c.mem, pt.n_arrays, c.ports_per_bank))
-        for c in cfgs], bool)
+    paths = np.left_shift(1, desc[..., F_LEVELS].astype(np.int64))
+    wide = np.isin(desc[..., F_KIND], _NTX_KINDS) & \
+        (paths > _MAX_C_PARITY_PATHS)
+    return ~wide.any(axis=1)
+
+
+def front_capped(areas: "Sequence[float]", cycle_ns: "Sequence[float]",
+                 cycles: "Sequence[int]", max_cycles: int,
+                 eligible: "Sequence[bool]") -> "list[bool]":
+    """Which points the reference's front cap keeps (``True``) and which
+    it abandons (``False``), from each point's area, cycle time and
+    exact cycle count: the arithmetic of ``_cycle_loop.c:599-650``
+    (``run_schedule_batch``) written out.
+
+    The points are walked in the given order (the reference's
+    ``evaluate_points`` gives them in stable ascending-area order).
+    ``tmin`` is the least ``cycles_q * ns_q`` over kept, eligible
+    earlier points ``q`` with ``area_q <= area_c - 1e-12``; where
+    ``tmin / ns_c < max_cycles`` the budget is ``int(tmin / ns_c) + 1``
+    (unless that reaches ``max_cycles``), and ``c`` is abandoned iff
+    ``cycles_c - 1 > budget`` (the loop checks its budget at the top of
+    every cycle it visits, the last one ``cycles_c - 1``).  An
+    ineligible point is never abandoned and never sets ``tmin``."""
+    kept: "list[bool]" = []
+    for c in range(len(areas)):
+        budget = max_cycles
+        if eligible[c]:
+            tmin = -1.0
+            for q in range(c):
+                if not (kept[q] and eligible[q]) or \
+                        areas[q] > areas[c] - 1e-12:
+                    continue
+                t = float(cycles[q]) * cycle_ns[q]
+                if tmin < 0.0 or t < tmin:
+                    tmin = t
+            if tmin >= 0.0:
+                cap = tmin / cycle_ns[c]
+                if cap < float(max_cycles):
+                    budget = min(budget, int(cap) + 1)
+        kept.append(not (budget < max_cycles
+                         and cycles[c] - 1 > budget))
+    return kept
 
 
 def schedule_front(tr, cfgs: "Sequence[ScheduleConfig]",
-                   areas: "Sequence[float]", cycle_ns: "Sequence[float]",
-                   *, device=None, batch_lanes: int = 256
+                   areas: "Sequence[float] | None",
+                   cycle_ns: "Sequence[float] | None", *, device=None
                    ) -> "list[ScheduleResult | None]":
-    """``cfgs`` under the reference's front cap: one ``cycle_lanes``
-    launch per ``batch_lanes`` configs, every lane run to completion,
-    then :func:`front_capped` once over all of them on the exact cycles.
+    """``cfgs`` under the reference's front cap, ``areas`` and
+    ``cycle_ns`` one per config: every lane run to completion (one
+    ``cycle_lanes`` launch per :data:`BATCH_LANES` configs), then
+    :func:`front_capped` once over all of them on the exact cycles.
     Results in ``cfgs`` order, ``None`` where the rule drops the config.
 
     A dropped lane may have run past ``max_cycles`` (its budget was
     lower, so the reference abandons it first); a kept one that did
     raises the reference's "scheduler exceeded", and any other lane
     error raises as in :func:`schedule_batched`."""
-    dev = resolve_device(device)
-    pt = prepare_trace(tr)
     cfgs = list(cfgs)
     n = len(cfgs)
+    if areas is None or cycle_ns is None:
+        raise ValueError("front_cap=True requires areas and cycle_ns")
     if len(areas) != n or len(cycle_ns) != n:
         raise ValueError(f"{n} configs but {len(areas)} areas and "
                          f"{len(cycle_ns)} cycle times")
+    if not cfgs:
+        return []
+    dev = resolve_device(device)
+    pt = prepare_trace(tr)
     cycles = np.zeros(n, np.int64)
     found: "list[ScheduleResult | None]" = [None] * n
-    for lo in range(0, n, batch_lanes):
-        sub = cfgs[lo:lo + batch_lanes]
-        sc, ins = _lane_inputs(pt, sub)
-        out = lane_outputs(pt, sc, ins, dev)
-        c, cnt, per_array, err = (o.cpu().numpy() for o in out[:4])
+    desc = []
+    for lo, sc, ins, (c, cnt, per_array, err) in _launches(pt, cfgs, dev,
+                                                           maps=False):
+        desc.append(ins["desc"])
         with tracing.span("dse.fold"):
-            for b, cfg in enumerate(sub):
+            for b, cfg in enumerate(cfgs[lo:lo + len(err)]):
                 if err[b] != ERR_MAX_CYCLES:
                     _raise_for(int(err[b]), cfg, sc)
                     found[lo + b] = _result(pt, b, c, cnt, per_array)
                 cycles[lo + b] = c[b]
     with tracing.span("dse.front_cap"):
-        kept = front_capped(areas, cycle_ns, cycles,
-                            cfgs[0].max_cycles if n else 0,
-                            front_eligible(pt, cfgs) if n else [])
+        kept = front_capped(areas, cycle_ns, cycles, cfgs[0].max_cycles,
+                            front_eligible(cfgs, np.concatenate(desc)))
     tracing.count("dse.front_cap.dropped", n - sum(kept))
     for i in range(n):
         if not kept[i]:
@@ -427,7 +510,3 @@ def profile_lanes(tr, cfgs: "Sequence[ScheduleConfig]", device=None
             "scan_pops": int(prof[lane, k + 1]),
             "scan_rounds": int(prof[lane, k + 2])}
 
-
-def schedule_one(tr, cfg: ScheduleConfig, *, device=None) -> ScheduleResult:
-    """Single-design convenience wrapper over :func:`schedule_batched`."""
-    return schedule_batched(tr, [cfg], device=device)[0]

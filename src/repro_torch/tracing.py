@@ -17,8 +17,13 @@ Counters are plain integers, always on, read with :func:`counts`:
 * ``batch.lanes``: lanes handed to ``ops.cycle_lanes``;
 * ``batch.h2d_bytes``: bytes of the arrays ``lane_outputs`` copies to
   the device;
-* ``dse.front_cap.dropped``: lanes that ``schedule_front`` ran and the
-  front cap then dropped.
+* ``dse.front_cap.dropped``: lanes that ``batched_cycle.schedule_front``
+  ran and the front cap (``batched_cycle.front_capped``) then dropped.
+
+``core/dse/sweep.py::evaluate_points`` opens ``dse.configs`` and
+``dse.fold`` once a call and ``dse.front_cap`` once a capped call; the
+batch layer, ``core/sim/batched_cycle.py``, opens ``dse.fold`` once a
+launch and ``dse.front_cap`` once a capped call.
 """
 from __future__ import annotations
 

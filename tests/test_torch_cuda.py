@@ -966,7 +966,8 @@ def test_pruned_sweep_on_the_card_matches_plain(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("bench", ["viterbi", "bfs_queue"])
-def test_front_cap_on_the_card_keeps_the_rule_s_set(cuda, bench):
+def test_front_cap_on_the_card_keeps_the_rule_s_set(cuda, bench,
+                                                    monkeypatch):
     """A TINY band under the front cap: the card's kept points are
     bit-equal to the plain lanes', the dropped ones exactly those the
     host's rule caps on the plain lanes' cycles; three runs, one of them
@@ -978,10 +979,12 @@ def test_front_cap_on_the_card_keeps_the_rule_s_set(cuda, bench):
                                             _point_static_cost,
                                             evaluate_points,
                                             schedule_config_for)
-    from repro_torch.core.sim import prepare_trace
-    from repro_torch.core.sim.batched_cycle import (front_eligible,
+    from repro_torch.core.sim import batched_cycle, prepare_trace
+    from repro_torch.core.sim.batched_cycle import (_lane_inputs,
+                                                    front_capped,
+                                                    front_eligible,
                                                     schedule_batched)
-    from repro_torch.core.sim.scheduler import front_capped, schedule_batch
+    from repro_torch.core.sim.scheduler import schedule_batch
 
     pt = prepare_trace(get_trace(bench))
     preds = surrogate.grid_predictions(pt, DEFAULT_DESIGNS, DEFAULT_UNROLLS)
@@ -993,12 +996,14 @@ def test_front_cap_on_the_card_keeps_the_rule_s_set(cuda, bench):
     areas, ns = zip(*(_point_static_cost(c, u)
                       for c, (_, u) in zip(cfgs, band)))
     plain = schedule_batched(pt, cfgs, device="cpu")
+    desc = _lane_inputs(pt, cfgs)[1]["desc"]
     kept = front_capped(areas, ns, [r.cycles for r in plain],
-                        cfgs[0].max_cycles, front_eligible(pt, cfgs))
+                        cfgs[0].max_cycles, front_eligible(cfgs, desc))
     assert 0 < sum(kept) < len(cfgs)
-    for batch_lanes in (256, 256, 8):
+    for lanes in (256, 256, 8):
+        monkeypatch.setattr(batched_cycle, "BATCH_LANES", lanes)
         got = schedule_batch(pt, cfgs, areas=areas, cycle_ns=ns,
-                             front_cap=True, batch_lanes=batch_lanes)
+                             front_cap=True)
         assert [r is not None for r in got] == kept
         for g, w, k in zip(got, plain, kept):
             if k:
@@ -1011,21 +1016,23 @@ def test_front_cap_on_the_card_keeps_the_rule_s_set(cuda, bench):
 
 
 @pytest.mark.parametrize("bench", ["paged_kv", "kmp", "aes"])
-def test_legality_pass_on_the_card(cuda, bench, tmp_path):
+def test_legality_pass_on_the_card(cuda, bench, tmp_path, monkeypatch):
     """The audit re-schedules the points on the card with event logs,
-    one launch a ``batch_lanes`` chunk: 0 violations; an edited cache
+    one launch a ``BATCH_LANES`` chunk: 0 violations; an edited cache
     entry fails it."""
     import hashlib
     import json
 
     from repro_torch.core.dse import runner
+    from repro_torch.core.sim import batched_cycle
     from repro_torch.core.verify import LegalityError
     from repro_torch.kernels.cycle_lanes import cycle_lanes
 
     pt, designs, unrolls, want = _golden_grid(bench)
+    monkeypatch.setattr(batched_cycle, "BATCH_LANES", 16)
     cycle_lanes.launches = 0
     got = runner.run_sweep(pt, designs, unrolls, cache_dir=tmp_path,
-                           check=True, batch_lanes=16)
+                           check=True)
     n = len(designs) * len(unrolls)
     assert cycle_lanes.launches == 2 * -(-n // 16)
     _same_points(got, want)

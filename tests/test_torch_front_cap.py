@@ -1,6 +1,7 @@
-"""The pruned sweep's front cap in the port (``scheduler.front_capped``,
-``scheduler.schedule_batch``, ``sweep.evaluate_points(front_cap=True)``)
-against the JAX package's compiled C batch loop, on the CPU.
+"""The pruned sweep's front cap in the port
+(``batched_cycle.front_capped``, ``scheduler.schedule_batch``,
+``sweep.evaluate_points(front_cap=True)``) against the JAX package's
+compiled C batch loop, on the CPU.
 
 The reference's cap exists only in that loop (``_cycle_loop.c:599-650``,
 ``run_schedule_batch``); without a C compiler its ``schedule_batch``
@@ -18,12 +19,15 @@ here first asserts that the loop is built.
   loop on random areas (with ties), cycle times, cycles and eligibility,
   the budget's boundary, and that the rule reads a capped point's cycles
   only as "past its budget": a lower bound in their place (what a run
-  abandoned early would know) never changes the kept set.
+  abandoned early would know) never changes the kept set;
+* a capped ``evaluate_points`` compiles each config's descriptors once
+  (the eligibility reads the launches' descriptor rows).
 
 Every lane runs to completion, and the host's rule trims afterwards
 (``tests/test_torch_cuda.py`` holds the card's lanes to the same set).
 """
 import dataclasses
+import sys
 
 import pytest
 from hypothesis import given, settings
@@ -41,9 +45,10 @@ from repro_torch.core.bench import get_trace
 from repro_torch.core.dse.surrogate import CALIBRATION_DESIGNS
 from repro_torch.core.dse.sweep import (_point_static_cost, evaluate_points,
                                         schedule_config_for)
-from repro_torch.core.sim import prepare_trace
-from repro_torch.core.sim.batched_cycle import front_eligible
-from repro_torch.core.sim.scheduler import front_capped, schedule_batch
+from repro_torch.core.sim import arbiter, batched_cycle, prepare_trace
+from repro_torch.core.sim.batched_cycle import (_lane_inputs, front_capped,
+                                                front_eligible)
+from repro_torch.core.sim.scheduler import schedule_batch
 
 from _torch_sched_util import one_thread  # noqa: F401  (fixture)
 
@@ -69,12 +74,18 @@ def _row(p):
     return None if p is None else p.row()
 
 
+def _desc(pt, cfgs):
+    """The descriptor rows of ``cfgs`` as a launch takes them."""
+    return _lane_inputs(pt, cfgs)[1]["desc"]
+
+
 @pytest.mark.parametrize("front_cap", [True, False])
-def test_evaluate_points_matches_the_reference(front_cap, one_thread):
+def test_evaluate_points_matches_the_reference(front_cap, one_thread,
+                                               monkeypatch):
     _needs_the_c_batch_loop()
     pt, rpt, pts, rpts = _points("fft_strided")
-    got = evaluate_points(pt, pts, front_cap=front_cap, device="cpu",
-                          batch_lanes=10)
+    monkeypatch.setattr(batched_cycle, "BATCH_LANES", 10)
+    got = evaluate_points(pt, pts, front_cap=front_cap, device="cpu")
     want = ref_evaluate_points(rpt, rpts, front_cap=front_cap)
     assert [_row(p) for p in got] == [_row(p) for p in want]
     assert sum(p is None for p in want) == (9 if front_cap else 0)
@@ -115,9 +126,35 @@ def test_every_default_config_takes_part_in_the_cap():
         pt = prepare_trace(get_trace(bench))
         cfgs = [schedule_config_for(pt, dp, u) for dp in DEFAULT_DESIGNS
                 for u in DEFAULT_UNROLLS]
-        assert front_eligible(pt, cfgs).all(), bench
+        assert front_eligible(cfgs, _desc(pt, cfgs)).all(), bench
         mixed = [cfgs[0], dataclasses.replace(cfgs[1], max_cycles=7)]
-        assert not front_eligible(pt, mixed).any()
+        assert not front_eligible(mixed, _desc(pt, mixed)).any()
+
+
+def test_a_capped_evaluate_points_compiles_each_config_once(
+        monkeypatch, one_thread):
+    """Under the cap, in one launch and in three, every config's
+    descriptors are compiled once: the eligibility reads the rows the
+    launches were given."""
+    real = arbiter.compile_descriptors
+    compiled = []
+
+    def counted(*args, **kwargs):
+        compiled.append(args[0])
+        return real(*args, **kwargs)
+
+    for mod in list(sys.modules.values()):
+        if getattr(mod, "__name__", "").startswith("repro_torch") and \
+                getattr(mod, "compile_descriptors", None) is real:
+            monkeypatch.setattr(mod, "compile_descriptors", counted)
+    pt = prepare_trace(get_trace("paged_kv"))
+    pts = [(dp, u) for dp in CALIBRATION_DESIGNS.values() for u in UNROLLS]
+    once = evaluate_points(pt, pts, front_cap=True, device="cpu")
+    assert len(compiled) == len(pts)
+    compiled.clear()
+    monkeypatch.setattr(batched_cycle, "BATCH_LANES", -(-len(pts) // 3))
+    assert evaluate_points(pt, pts, front_cap=True, device="cpu") == once
+    assert len(compiled) == len(pts)
 
 
 # ----------------------------------------------------------------------

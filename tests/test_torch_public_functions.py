@@ -12,9 +12,13 @@ CPU, with the same numpy inputs:
 * the packages ``repro_torch.core``, ``.core.sim`` and ``.core.dse``
   export the reference packages' public names (``__all__``), but for a
   named set that is not ported, and name their own additions: a later
-  gap, or an addition left unnamed, fails by name.
+  gap, or an addition left unnamed, fails by name;
+* the sweep path's entry points (``run_sweep``, ``evaluate_points``,
+  ``schedule_batch``) take the reference's parameters, but for those of
+  its process pool and CPU backends, and ``device``.
 """
 import importlib
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -125,8 +129,8 @@ NOT_PORTED = {
 PORT_ONLY = {
     "core": set(),
     "core.sim": set(),
-    "core.dse": {"evaluate_batched", "sweep_batched", "grid_predictions",
-                 "select_band", "predict", "DEFAULT_MARGIN"},
+    "core.dse": {"grid_predictions", "select_band", "predict",
+                 "DEFAULT_MARGIN"},
 }
 
 
@@ -146,3 +150,26 @@ def test_packages_export_the_reference_s_public_names(package):
             assert repr(getattr(port, name)) == repr(want), name
         else:
             assert getattr(port, name).__name__ == want.__name__, name
+
+
+# the reference runner's parameters of its process pool and CPU backends
+NOT_PORTED_PARAMS = {"jobs", "backend", "chunk_timeout", "chunk_retries"}
+
+
+def _params(fn) -> dict:
+    """Each parameter's kind and default (by repr: the packages' design
+    points are equal dataclasses of two classes)."""
+    return {p.name: (p.kind, repr(p.default))
+            for p in inspect.signature(fn).parameters.values()}
+
+
+@pytest.mark.parametrize("module, name", [
+    ("core.dse.runner", "run_sweep"), ("core.dse.sweep", "evaluate_points"),
+    ("core.sim.scheduler", "schedule_batch")])
+def test_sweep_path_takes_the_reference_s_parameters(module, name):
+    ref = _params(getattr(importlib.import_module(f"repro.{module}"), name))
+    port = _params(getattr(importlib.import_module(f"repro_torch.{module}"),
+                           name))
+    want = {k: v for k, v in ref.items() if k not in NOT_PORTED_PARAMS}
+    want["device"] = (inspect.Parameter.KEYWORD_ONLY, "None")
+    assert port == want

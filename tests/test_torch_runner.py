@@ -151,24 +151,27 @@ def test_cache_dir_from_the_environment(tmp_path, monkeypatch):
 
 
 def test_launches_take_batch_lanes_points(monkeypatch, one_thread):
-    """Misses go to the card in launches of ``batch_lanes`` points, and
-    so does the audit; the points do not depend on the batching."""
+    """Misses go to the card in launches of at most
+    ``batched_cycle.BATCH_LANES`` points, and so does the audit (counted
+    at ``ops.cycle_lanes``: lanes, recording); the points do not depend
+    on the batching."""
     import repro_torch.core.sim.batched_cycle as bc
+    from repro_torch.kernels import ops
 
     calls = []
-    real = bc.schedule_batched
+    real = ops.cycle_lanes
 
-    def counted(pt, cfgs, **kwargs):
-        calls.append((len(cfgs), kwargs.get("collect_events", False)))
-        return real(pt, cfgs, **kwargs)
+    def counted(desc, *args, **kwargs):
+        calls.append((desc.shape[0], kwargs["record"]))
+        return real(desc, *args, **kwargs)
 
-    monkeypatch.setattr(bc, "schedule_batched", counted)
+    monkeypatch.setattr(ops, "cycle_lanes", counted)
     pt = _pt("paged_kv")
     one = runner.run_sweep(pt, DESIGNS, UNROLLS, device="cpu")
     assert calls == [(len(DESIGNS) * len(UNROLLS), False)]
     calls.clear()
-    three = runner.run_sweep(pt, DESIGNS, UNROLLS, device="cpu",
-                             batch_lanes=4, check=True)
+    monkeypatch.setattr(bc, "BATCH_LANES", 4)
+    three = runner.run_sweep(pt, DESIGNS, UNROLLS, device="cpu", check=True)
     assert calls == [(4, False), (4, False), (2, False),
                      (4, True), (4, True), (2, True)]
     assert three == one

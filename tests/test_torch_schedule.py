@@ -7,8 +7,9 @@ the CPU (the ``cycle_lanes`` wrapper given CPU tensors runs
   three benchmarks, and to the JAX backend's on one, with the final
   remap live maps equal to JAX ``schedule_batched(return_maps=True)``;
 * the three error codes raise the reference loops' exceptions;
-* ``sweep_batched`` gives the reference ``run_sweep(backend="c")``'s
-  ``DSEPoint``s field for field and the same Pareto fronts;
+* ``evaluate_points`` over the whole grid, in launches of 48 lanes,
+  gives the reference ``run_sweep(backend="c")``'s ``DSEPoint``s field
+  for field and the same Pareto fronts;
 * a hypothesis fuzz of random DDGs and designs: the plain lanes equal
   the reference C loop.
 
@@ -30,9 +31,10 @@ from repro.core.sim.scheduler import schedule as ref_schedule
 from repro.core.sim.scheduler import schedule_events as ref_schedule_events
 from repro_torch.core.amm.spec import AMMSpec
 from repro_torch.core.bench import get_trace
-from repro_torch.core.dse import pareto, sweep_batched
+from repro_torch.core.dse import pareto
 from repro_torch.core.sim import (ScheduleConfig, Trace, TraceBuilder,
                                   prepare_trace, schedule)
+from repro_torch.core.sim import batched_cycle
 from repro_torch.core.sim.batched_cycle import schedule_batched
 from repro_torch.core.sim.trace import IADD
 
@@ -84,6 +86,33 @@ def test_event_logs_and_remap_maps_match_jax():
     np.testing.assert_array_equal(maps, np.asarray(jmaps))
     assert maps.dtype == np.int32
     assert np.any(maps != 0)              # remap designs moved some words
+
+
+def test_launches_of_a_few_lanes_give_what_one_launch_gives(monkeypatch):
+    """More configs than ``BATCH_LANES``: the results, the event logs and
+    the remap live maps, each launch's padded with zeros to the widest
+    table depth, are those of one launch."""
+    pt, _, cfgs = golden_configs("kv_decode")
+    one = schedule_batched(pt, cfgs, device="cpu", return_maps=True,
+                           collect_events=True)
+    monkeypatch.setattr(batched_cycle, "BATCH_LANES", 4)
+    calls = []
+    real = batched_cycle._lane_inputs
+
+    def counted(pt, sub):
+        sc, ins = real(pt, sub)
+        calls.append(sc.table_depth)
+        return sc, ins
+
+    monkeypatch.setattr(batched_cycle, "_lane_inputs", counted)
+    few = schedule_batched(pt, cfgs, device="cpu", return_maps=True,
+                           collect_events=True)
+    assert len(calls) == -(-len(cfgs) // 4) and len(set(calls)) > 1
+    assert few[0] == one[0]
+    np.testing.assert_array_equal(few[1], one[1])
+    for log, want in zip(few[2], one[2], strict=True):
+        for f in ("cycle", "path", "resource", "slot"):
+            np.testing.assert_array_equal(getattr(log, f), getattr(want, f))
 
 
 def test_schedule_one_design_and_empty_batch():
@@ -161,11 +190,14 @@ def test_lanes_finishing_at_different_cycles_keep_their_results():
 
 
 @pytest.mark.parametrize("bench", ["paged_kv", "kv_decode", "gemm_ncubed"])
-def test_sweep_batched_matches_reference_run_sweep(bench):
+def test_sweep_batched_matches_reference_run_sweep(bench, monkeypatch):
     from repro.core.dse.runner import run_sweep
 
     pt = prepare_trace(get_trace(bench))
-    points = sweep_batched(pt, device="cpu", batch_lanes=48)
+    monkeypatch.setattr(batched_cycle, "BATCH_LANES", 48)
+    grid = [(dp, u) for dp in sweep.DEFAULT_DESIGNS
+            for u in sweep.DEFAULT_UNROLLS]
+    points = sweep.evaluate_points(pt, grid, device="cpu")
     want = run_sweep(ref_prepare(ref_get_trace(bench)), backend="c", jobs=1)
     assert [p.row() for p in points] == [p.row() for p in want]
     rfront = importlib.import_module("repro.core.dse.pareto")
