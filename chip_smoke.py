@@ -958,7 +958,13 @@ def timing_backend(dev: torch.device) -> dict:
               + ", ".join(f"{name} {share:.1%}" for name, share in
                           zip(LANE_PHASES, split["shares"]))
               + f"; scan {split['scan_pops']} pops in "
-              f"{split['scan_rounds']} warp rounds")
+              f"{split['scan_rounds']} warp rounds; select "
+              f"{split['select_words'] / split['visited']:.1f} bitmap words "
+              f"a visit of {split['ready_words'] / split['visited']:.1f} "
+              "non-empty; next slowest lanes "
+              + ", ".join(f"{grid[r['lane']][0].label} u{grid[r['lane']][1]}"
+                          f" ({r['clocks']} clocks)"
+                          for r in split["slowest"][1:]))
 
     # (c) kernel against plain at full width, events and maps included
     pt, cfgs = prepared[PLAIN_BENCH], configs[PLAIN_BENCH]
@@ -1417,8 +1423,8 @@ def pruned_sweep(dev: torch.device, kernels: dict,
             dp, u = grid[i]
             line += (f"; slowest lane {dp.label} u{u} "
                      f"({'kept' if i in kept[b] else 'capped'}), "
-                     f"{split['cycles']} cycles, deferral scan "
-                     f"{split['shares'][3]:.1%} of its SM clocks, "
+                     f"{split['cycles']} cycles, deferral scan and FU "
+                     f"issue {split['shares'][3]:.1%} of its SM clocks, "
                      f"{split['scan_pops']} pops in "
                      f"{split['scan_rounds']} warp rounds")
         print(line)

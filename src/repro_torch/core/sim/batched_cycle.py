@@ -472,7 +472,7 @@ def schedule_front(tr, cfgs: "Sequence[ScheduleConfig]",
 
 # the phases ``cycle_lanes``' profiling instantiation clocks, in the
 # order of its profile columns
-LANE_PHASES = ("retire", "rank", "FU issue + candidates", "deferral scan",
+LANE_PHASES = ("retire", "ready counts", "candidates", "scan and FU issue",
                "clock")
 
 
@@ -486,10 +486,15 @@ def profile_lanes(tr, cfgs: "Sequence[ScheduleConfig]", device=None
     sets the launch's time.  Returns its index in ``cfgs`` (``lane``),
     its ``cycles``, the cycles it ``visited`` (the idle-cycle jump skips
     the rest), its SM ``clocks`` in each of :data:`LANE_PHASES`,
-    ``clocks_per_visit``, each phase's ``shares`` of its clocks, and the
+    ``clocks_per_visit``, each phase's ``shares`` of its clocks, the
     candidates its deferral scan popped (``scan_pops``) in how many
     warp rounds (``scan_rounds``; pops a round is the parallelism the
-    scan's warps found).
+    scan's warps found), and, summed over its visited cycles, the
+    ready-bitmap words its selects read (``select_words``) and the
+    bitmap's non-empty words (``ready_words``, what a walk of the whole
+    bitmap would have read); and the five slowest lanes, slowest first
+    (``slowest``: each lane's index and clocks), so that the lane next
+    in line is known.
     Raises ``ValueError`` off the card: the plain lanes keep no
     clocks."""
     dev = resolve_device(device)
@@ -498,9 +503,12 @@ def profile_lanes(tr, cfgs: "Sequence[ScheduleConfig]", device=None
     pt = prepare_trace(tr)
     sc, ins = _lane_inputs(pt, list(cfgs))
     out = lane_outputs(pt, sc, ins, dev, profile=True)
-    cycles, prof = out[0].cpu().numpy(), out[-1].cpu().numpy()
+    cycles = out[0].cpu().numpy()
+    prof, reads = out[-2].cpu().numpy(), out[-1].cpu().numpy()
     k = len(LANE_PHASES)
-    lane = int(np.argmax(prof[:, :k].sum(1)))
+    total = prof[:, :k].sum(1)
+    order = np.argsort(-total, kind="stable")
+    lane = int(order[0])
     clocks = prof[lane, :k]
     return {"lane": lane, "cycles": int(cycles[lane]),
             "visited": int(prof[lane, k]),
@@ -508,5 +516,8 @@ def profile_lanes(tr, cfgs: "Sequence[ScheduleConfig]", device=None
             "clocks_per_visit": float(clocks.sum() / prof[lane, k]),
             "shares": [float(c / clocks.sum()) for c in clocks],
             "scan_pops": int(prof[lane, k + 1]),
-            "scan_rounds": int(prof[lane, k + 2])}
-
+            "scan_rounds": int(prof[lane, k + 2]),
+            "select_words": int(reads[lane, 0]),
+            "ready_words": int(reads[lane, 1]),
+            "slowest": [{"lane": int(i), "clocks": int(total[i])}
+                        for i in order[:5]]}

@@ -12,11 +12,12 @@
 // (III-C) for one trace under L memory designs.  Each simulated cycle:
 //   1. retire: a node is retired once issued and finish <= cycle;
 //   2. ready: not issued and every predecessor retired;
-//   3. one segmented rank over the class-grouped priority permutation
-//      perm (arrays first, then the 7 FU classes, each sorted by
-//      (-height, node)): an FU-class node issues when its rank within
-//      its class is at most the class's budget; the ready nodes of an
-//      array become its candidates in rank order, at most S of them;
+//   3. a select within each class of the class-grouped priority
+//      permutation perm (arrays first, then the 7 FU classes, each sorted
+//      by (-height, node)): the ready nodes of an array become its
+//      candidates in rank order, at most S of them; an FU-class node
+//      issues when its rank within its class is at most the class's
+//      budget (beside step 4, which it does not touch);
 //   4. the deferral scan: each array pops its candidates in order and
 //      issues or defers each one by its design's rules (banked bank
 //      ports; multipump/ideal/LVT port budgets; NTX direct or parity leaf
@@ -34,7 +35,7 @@
 // and writes a few counters and its maps.  The serial chain of simulated
 // cycles bounds it: a lane runs up to ~49 000 cycles, each a handful of
 // block barriers and a few dependent L2 round trips (the retire's
-// pending-count atomics, the rank pass's reads of the ready positions),
+// pending-count atomics, the select's reads of the chosen positions),
 // plus the deferral scan: a round of the array's warp for each issue and
 // for each window of 32 deferrals, each round a chain of dependent
 // shared-memory loads (candidate, port keys).  Lanes are independent, so
@@ -63,12 +64,19 @@
 //     jump is the least finish of a non-empty bucket.  A bucket holds at
 //     most wheel_depth positions (the host's bound on the issues that share
 //     a finish; a push beyond it is an error, never a silent drop).
-//   * Rank over the two-level bitmap: each thread owns a power-of-two run
-//     of words, counts the ready bits of its non-empty words (found from
-//     the summary) and a block scan gives each non-empty word its prefix
-//     and a slot in a compact list; the FU-issue and candidate pass walks
-//     only that list, a warp a word.  Class segment prefixes come from the
-//     per-class ready counts.
+//   * A select in each class's own segment: class g owns the positions
+//     [seg_start[g], seg_start[g + 1]), so a ready position's rank in its
+//     class is the ready bits before it in that range.  A warp a class
+//     (class g on warp g % 16) walks the segment from its start, skipping
+//     blocks of 1024 positions with nothing ready through the summary, a
+//     bitmap word a thread with a warp prefix of their counts, and stops
+//     at the word that holds the k-th ready bit (k: the class's ready
+//     count, at most its FU budget, or for an array the candidates its
+//     scan can pop, rd + wr + max_failed, at most S).  The work a cycle
+//     grows with what issues and what becomes a candidate, not with the
+//     ready set.  The arrays' selects lay out the candidates before the
+//     scan; the FU classes' issue beside it, on warps that scan no array
+//     while there are at most 9 arrays.
 //   * Candidates are laid into [A, S] slots in shared memory with their
 //     word index, load flag and latency, so the scan reads no node array.
 //   * The deferral scan runs one warp per array (arrays share no port
@@ -91,8 +99,11 @@
 //     with record = true also write the event log (cycle, path, resource,
 //     slot per node).
 //   * A profiling instantiation (PROFILE) sums clock64() per phase per
-//     lane: retire, rank, FU issue and candidates, deferral scan, clock;
-//     and counts the cycles visited and the scan's pops and rounds.
+//     lane: retire, ready counts, candidates (the arrays' selects),
+//     deferral scan and FU issue, clock; and counts the cycles visited,
+//     the scan's pops and rounds, the bitmap words the selects read and
+//     the non-empty words there were (what a walk of the whole bitmap
+//     would have read).
 //   * Errors as in jax_cycle.py:70: max-cycles (1), deadlock (2) and a
 //     memory op on an unconfigured array (3); a finish-wheel overflow (4)
 //     cannot happen under the host's bound.  The host raises for them.
@@ -108,6 +119,7 @@ constexpr int kFields = 13;              // descriptor row (arbiter.py F_*)
 constexpr int kFu = 7;                   // FU classes (prepared.FU_ORDER)
 constexpr int kPhases = 5;               // profiled phases (see PROFILE)
 constexpr int kProf = kPhases + 3;       // + visited cycles, scan pops, rounds
+constexpr int kReads = 2;                // words selected, words non-empty
 enum { F_KIND, F_RD, F_WR, F_SLOTS, F_NBANKS, F_DEPTH, F_LEVELS, F_HALF,
        F_SUB, F_MAXFAIL, F_CONFIGURED, F_NLEAVES, F_TREE_DEPTH };
 enum { K_IDEAL, K_BANKED, K_MULTIPUMP, K_H_NTX, K_B_NTX, K_HB_NTX, K_LVT,
@@ -127,6 +139,7 @@ struct Params {
   const int* max_cycles;    // [L]
   const int* perm;          // [NPAD] node at each position (event log)
   const int* gid_perm;      // [NPAD] class id of each position
+  const int* seg_start;     // [A + 8] first position of each class (+ end)
   const int* x_pos;         // [n_real] lat << 1 | is_load by position
   const int* word_pos;      // [n_real] memory word by position
   const int* succ_ptr;      // [n_real + 1] successor CSR by position
@@ -139,6 +152,7 @@ struct Params {
   int* maps;                // [L, A, D]
   int* events;              // [L, 4, NPAD] or null
   long long* prof;          // [L, kProf] or null
+  long long* reads;         // [L, kReads] or null (with prof)
   uint32_t* pend_ws;        // [L, pend_words]
   uint8_t* delayed_ws;      // [L, n_real]
   int* wheel_ws;            // [L, W, wheel_depth]
@@ -151,23 +165,22 @@ struct Params {
 struct Smem {
   uint32_t* rbits;   // [W32] ready bit per perm position
   uint32_t* sbits;   // [NSW] bit per non-empty rbits word
-  int* nz;           // [W32] non-empty words this cycle, in order
-  int* nzpre;        // [W32] ready count before each of them
   int* cand_pos;     // [A * S]
   int* cand_w;       // [A * S] word index
   int* cand_x;       // [A * S] lat << 1 | is_load
   uint8_t* use;      // [A * (U + 1)] NTX port keys used this cycle
   int* ruse;         // [A * (NB + 1)] bank accesses this cycle
   int* wuse;         // [A * (NB + 1)] bank writes this cycle
-  int* segpre;       // [A + 8] ready count before each class segment
   int* cls_ready;    // [A + 8] ready count of each class
-  int* red;          // [4 * kWarps] block-scan scratch; at the end, each
-                     // warp's scan pops and rounds (int64, PROFILE)
+  int* red;          // [8 * kWarps] at the end, each warp's scan pops and
+                     // rounds, words selected and non-empty (int64, PROFILE)
   int* ctr;          // [2 * C_N] per-cycle lane counters
   int* arr;          // [A] per-array accesses (lane totals)
   int* bcnt;         // [W] positions in each wheel bucket
   int* bfin;         // [W] the finish of each non-empty bucket
-  int* budget;       // [kFu] FU budgets of the lane
+  int* seg;          // [A + 8] seg_start
+  int* kcap;         // [A + 8] the most a class takes a cycle: an FU
+                     // class's budget; an array's scan pops, at most S
   int* tern;         // [1 << tern_levels(U)] x's binary digits in base 3
 };
 
@@ -196,42 +209,38 @@ __host__ __device__ inline size_t smem_layout(const Params& p, char* base,
   };
   char* rbits = take(sizeof(uint32_t) * (w32 + 1));
   char* sbits = take(sizeof(uint32_t) * (nsw + 1));
-  char* nz = take(sizeof(int) * (w32 + 1));
-  char* nzpre = take(sizeof(int) * (w32 + 1));
   char* cp = take(sizeof(int) * p.A * p.S);
   char* cw = take(sizeof(int) * p.A * p.S);
   char* cx = take(sizeof(int) * p.A * p.S);
   char* use = take(size_t(p.A) * (p.U + 1));
   char* ruse = take(sizeof(int) * p.A * (p.NB + 1));
   char* wuse = take(sizeof(int) * p.A * (p.NB + 1));
-  char* segpre = take(sizeof(int) * (p.A + 8));
   char* cls = take(sizeof(int) * (p.A + 8));
-  char* red = take(sizeof(int) * 4 * kWarps);
+  char* red = take(sizeof(int) * 8 * kWarps);
   char* ctr = take(sizeof(int) * 2 * C_N);
   char* arr = take(sizeof(int) * p.A);
   char* bcnt = take(sizeof(int) * p.W);
   char* bfin = take(sizeof(int) * p.W);
-  char* budget = take(sizeof(int) * kFu);
+  char* seg = take(sizeof(int) * (p.A + 8));
+  char* kcap = take(sizeof(int) * (p.A + 8));
   char* tern = take(sizeof(int) << tern_levels(p.U));
   if (s != nullptr) {
     s->rbits = reinterpret_cast<uint32_t*>(rbits);
     s->sbits = reinterpret_cast<uint32_t*>(sbits);
-    s->nz = reinterpret_cast<int*>(nz);
-    s->nzpre = reinterpret_cast<int*>(nzpre);
     s->cand_pos = reinterpret_cast<int*>(cp);
     s->cand_w = reinterpret_cast<int*>(cw);
     s->cand_x = reinterpret_cast<int*>(cx);
     s->use = reinterpret_cast<uint8_t*>(use);
     s->ruse = reinterpret_cast<int*>(ruse);
     s->wuse = reinterpret_cast<int*>(wuse);
-    s->segpre = reinterpret_cast<int*>(segpre);
     s->cls_ready = reinterpret_cast<int*>(cls);
     s->red = reinterpret_cast<int*>(red);
     s->ctr = reinterpret_cast<int*>(ctr);
     s->arr = reinterpret_cast<int*>(arr);
     s->bcnt = reinterpret_cast<int*>(bcnt);
     s->bfin = reinterpret_cast<int*>(bfin);
-    s->budget = reinterpret_cast<int*>(budget);
+    s->seg = reinterpret_cast<int*>(seg);
+    s->kcap = reinterpret_cast<int*>(kcap);
     s->tern = reinterpret_cast<int*>(tern);
   }
   return off;
@@ -247,11 +256,11 @@ __device__ __forceinline__ void pin(Smem& s, char* base) {
     asm volatile("" : "+r"(off));
     ptr = reinterpret_cast<decltype(+ptr)>(base + off);
   };
-  keep(s.rbits); keep(s.sbits); keep(s.nz); keep(s.nzpre);
+  keep(s.rbits); keep(s.sbits);
   keep(s.cand_pos); keep(s.cand_w); keep(s.cand_x); keep(s.use);
-  keep(s.ruse); keep(s.wuse); keep(s.segpre); keep(s.cls_ready);
+  keep(s.ruse); keep(s.wuse); keep(s.cls_ready);
   keep(s.red); keep(s.ctr); keep(s.arr); keep(s.bcnt); keep(s.bfin);
-  keep(s.budget); keep(s.tern);
+  keep(s.seg); keep(s.kcap); keep(s.tern);
 }
 
 __device__ __forceinline__ int warp_min(int v) {
@@ -364,6 +373,137 @@ __device__ __forceinline__ void retire(const Params& p, const Smem& s,
     const int sh = (q & (per_word - 1)) * bits;
     const uint32_t old = atomicSub(pend + q / per_word, 1u << sh);
     if (pend_field(old, q, p.pend_log) == 1) make_ready(p, s, q);
+  }
+}
+
+// The position of the n-th (from 0) set bit of m, which has more than n.
+__device__ __forceinline__ int nth_bit(uint32_t m, int n) {
+  int pos = 0;
+#pragma unroll
+  for (int w = 16; w > 0; w >>= 1) {
+    const int c = __popc(m & ((1u << w) - 1u));
+    if (n >= c) {
+      n -= c;
+      m >>= w;
+      pos += w;
+    }
+  }
+  return pos;
+}
+
+// The select of class g (an FU class where FU) for one cycle, by one
+// warp: the first k (>= 1) ready positions of the class's segment
+// [seg[g], seg[g + 1]) in order, each with its rank within the class.  A
+// round reads 32 summary words (32 blocks of 1024 positions), one a
+// thread; each block that holds a ready word is read a bitmap word a
+// thread, masked to the segment.  An array's chosen bits become the
+// candidates of their ranks: a warp prefix of the words' counts ranks
+// them, each thread lays its own word's positions into their slots, and
+// then a slot a thread takes its word and latency.  An FU class's chosen
+// bits issue one a thread: where the first word that holds the class's
+// bits holds all still wanted (a budget of a few), thread t takes its
+// t-th bit; else thread t finds the t-th bit's word by a search over the
+// prefix.  The thread of a word then clears its issued bits (with an
+// atomic: the segment's first and last words may hold another class's
+// bits, which another warp clears at the same time).  PROFILE counts the
+// bitmap words read.
+template <bool RECORD, bool PROFILE, bool FU>
+__device__ void select_class(const Params& p, const Smem& s, int g, int k,
+                             int cycle, int lane, int* wheel, int* events,
+                             int* ctr, long long& words_read) {
+  const int lo = s.seg[g], hi = s.seg[g + 1];     // k >= 1: lo < hi
+  // FU position i, of rank r (from 0) in its class, issues
+  auto issue = [&](int i, int r) {
+    push_wheel(p, s, wheel, i, cycle + (__ldg(p.x_pos + i) >> 1), ctr);
+    if (RECORD) {
+      const int node = __ldg(p.perm + i);
+      events[node] = cycle;
+      events[p.npad + node] = P_COMPUTE;
+      events[3 * p.npad + node] = r;
+    }
+  };
+  // the first n chosen bits of word wd (its bits as masked) leave it
+  auto clear = [&](int wd, uint32_t bits, int n) {
+    const uint32_t gone =
+        n == __popc(bits) ? bits : bits & ((1u << nth_bit(bits, n)) - 1u);
+    const uint32_t old = atomicAnd(&s.rbits[wd], ~gone);
+    if ((old & ~gone) == 0) atomicAnd(&s.sbits[wd >> 5], ~(1u << (wd & 31)));
+  };
+  const int w_first = lo >> 5, w_last = (hi - 1) >> 5;
+  const int sb_first = w_first >> 5, sb_last = w_last >> 5;
+  int taken = 0;                                  // warp-uniform
+  for (int sb0 = sb_first; sb0 <= sb_last && taken < k; sb0 += 32) {
+    const int sb = sb0 + lane;
+    uint32_t sw = 0;
+    if (sb <= sb_last) {
+      sw = s.sbits[sb];
+      if (sb == sb_first) sw &= ~0u << (w_first & 31);
+      if (sb == sb_last) sw &= ~0u >> (31 - (w_last & 31));
+    }
+    uint32_t blocks = __ballot_sync(0xffffffffu, sw != 0);
+    while (blocks != 0 && taken < k) {
+      const int src = __ffs(blocks) - 1;
+      blocks &= blocks - 1;
+      const uint32_t words = __shfl_sync(0xffffffffu, sw, src);
+      const int wd = (sb0 + src) * 32 + lane;
+      uint32_t bits = 0;
+      if ((words >> lane) & 1u) {
+        bits = s.rbits[wd];
+        if (wd == w_first) bits &= ~0u << (lo & 31);
+        if (wd == w_last) bits &= ~0u >> (31 - ((hi - 1) & 31));
+      }
+      if (PROFILE) words_read += __popc(words);
+      const int c = __popc(bits);
+      if (FU) {
+        // the first word that holds the class's bits holds every issue
+        // still wanted (a budget of a few): no prefix, no search
+        const uint32_t filled = __ballot_sync(0xffffffffu, c != 0);
+        const int j0 = __ffs(filled) - 1;
+        const int want = k - taken;
+        if (filled != 0 && __shfl_sync(0xffffffffu, c, j0) >= want) {
+          const uint32_t wb = __shfl_sync(0xffffffffu, bits, j0);
+          const int base = ((sb0 + src) * 32 + j0) * 32;
+          for (int t = lane; t < want; t += 32)
+            issue(base + nth_bit(wb, t), taken + t);
+          if (lane == j0) clear(wd, bits, want);
+          taken = k;
+          break;
+        }
+      }
+      const int incl = warp_incl_sum(c, lane);
+      const int n_take = min(__shfl_sync(0xffffffffu, incl, 31), k - taken);
+      // this thread's word: its bits among the block's first n_take
+      const int mine = min(max(n_take - (incl - c), 0), c);
+      if (!FU) {
+        int* slot = s.cand_pos + g * p.S + taken + incl - c;
+        uint32_t m = bits;
+        for (int q = 0; q < mine; ++q, m &= m - 1)
+          slot[q] = wd * 32 + __ffs(m) - 1;
+        __syncwarp();
+        for (int t = lane; t < n_take; t += 32) {
+          const int at = g * p.S + taken + t;
+          const int i = s.cand_pos[at];
+          s.cand_w[at] = __ldg(p.word_pos + i);
+          s.cand_x[at] = __ldg(p.x_pos + i);
+        }
+        taken += n_take;
+        continue;
+      }
+      for (int t0 = 0; t0 < n_take; t0 += 32) {
+        const int t = t0 + lane;          // the t-th ready bit of the block
+        int j = 0;                        // its word: the first incl > t
+#pragma unroll
+        for (int step = 16; step > 0; step >>= 1)
+          if (__shfl_sync(0xffffffffu, incl, j + step - 1) <= t) j += step;
+        const uint32_t wb = __shfl_sync(0xffffffffu, bits, j);
+        const int before = __shfl_sync(0xffffffffu, incl, j) - __popc(wb);
+        if (t < n_take)
+          issue(((sb0 + src) * 32 + j) * 32 + nth_bit(wb, t - before),
+                taken + t);
+      }
+      if (mine > 0) clear(wd, bits, mine);
+      taken += n_take;
+    }
   }
 }
 
@@ -648,7 +788,25 @@ cycle_lanes_kernel(Params p) {
   for (int i = tid; i < A + 8; i += kThreads) s.cls_ready[i] = 0;
   for (int i = tid; i < p.W; i += kThreads) s.bcnt[i] = s.bfin[i] = 0;
   for (int i = tid; i < 2 * C_N; i += kThreads) s.ctr[i] = 0;
-  if (tid < kFu) s.budget[tid] = p.fu_budgets[lane_id * kFu + tid];
+  if (tid < A + 8) {
+    // each class's segment, and the most it takes a cycle: an FU class
+    // its budget; an array the pops its scan can make (every pop issues,
+    // on a read or write port, or defers, up to max_failed, one at least
+    // for the kinds that stop on their first failure past the cap), so
+    // the scan never reads a slot past it; nothing for an unconfigured
+    // array (its scan returns at once) and the trace's pads
+    int cap = 0;
+    if (tid < A) {
+      const int* d = p.desc + (size_t(lane_id) * A + tid) * kFields;
+      const long long most = (long long)max(d[F_RD], 0) + max(d[F_WR], 0) +
+                             max(d[F_MAXFAIL], 1);
+      if (d[F_CONFIGURED] > 0) cap = most < S ? int(most) : S;
+    } else if (tid < A + kFu) {
+      cap = max(p.fu_budgets[lane_id * kFu + tid - A], 0);
+    }
+    s.kcap[tid] = cap;
+    s.seg[tid] = min(max(p.seg_start[tid], 0), n);
+  }
   for (int x = tid; x < 1 << tern_levels(p.U); x += kThreads) {
     int v = 0;
     for (int b = x, p3 = 1; b != 0; b >>= 1, p3 *= 3) v += (b & 1) * p3;
@@ -671,16 +829,12 @@ cycle_lanes_kernel(Params p) {
                                         wd < w32 && s.rbits[wd] != 0);
     if (lane == 0) s.sbits[base >> 5] = bits;
   }
-  // threads own power-of-two runs of bitmap words for the rank
-  int wpt = 1;
-  while (wpt * kThreads < w32) wpt <<= 1;
-  const int w_lo = tid * wpt;
-  const uint32_t run_mask = wpt >= 32 ? 0xffffffffu : (1u << wpt) - 1u;
 
   int cycle = 0, remaining = n, err = ERR_NONE, parity = 0;
   int cnt[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   long long ph[kPhases] = {0, 0, 0, 0, 0};
   long long visited = 0, t_mark = 0, pops = 0, rounds = 0;
+  long long words_read = 0, words_ready = 0;
   if (PROFILE) t_mark = clock64();
   auto mark = [&](int phase) {
     if (PROFILE) {
@@ -732,107 +886,56 @@ cycle_lanes_kernel(Params p) {
     close(0);
     for (int b = tid; b < p.W; b += kThreads)
       if (s.bcnt[b] > 0 && s.bfin[b] <= cycle) s.bcnt[b] = 0;
-    // every thread: the ready total and the FU issue count of this cycle
+    // every warp: the ready total and this cycle's FU issues, a class a
+    // thread
     int total_ready = 0, fu_total = 0;
-    for (int g = 0; g < A + kFu; ++g) {
-      const int r = s.cls_ready[g];
-      total_ready += r;
-      if (g >= A) fu_total += min(r, max(s.budget[g - A], 0));
+    for (int g0 = 0; g0 < A + kFu; g0 += 32) {
+      const int g = g0 + lane;
+      const int r = g < A + kFu ? s.cls_ready[g] : 0;
+      total_ready += __reduce_add_sync(0xffffffffu, r);
+      fu_total += __reduce_add_sync(
+          0xffffffffu, g >= A && g < A + kFu ? min(r, s.kcap[g]) : 0);
     }
 
     if (total_ready > 0) {
-      // ---- rank: class prefixes; ready counts of the non-empty words --
-      if (tid < A + 8) {
-        int pre = 0;
-        for (int g = 0; g < tid; ++g) pre += s.cls_ready[g];
-        s.segpre[tid] = pre;
-      }
-      uint32_t mine = 0;
-      if (w_lo < w32)
-        mine = (s.sbits[w_lo >> 5] >> (w_lo & 31)) & run_mask;
-      int mine_r = 0;
-      for (uint32_t m = mine; m; m &= m - 1)
-        mine_r += __popc(s.rbits[w_lo + __ffs(m) - 1]);
-      const int mine_k = __popc(mine);
-      const int incl_r = warp_incl_sum(mine_r, lane);
-      const int incl_k = warp_incl_sum(mine_k, lane);
-      if (lane == 31) {
-        s.red[warp] = incl_r;
-        s.red[kWarps + warp] = incl_k;
-      }
-      __syncthreads();
-      int run_r = incl_r - mine_r, run_k = incl_k - mine_k, n_words = 0;
-      for (int i = 0; i < kWarps; ++i) {
-        const int k = s.red[kWarps + i];
-        if (i < warp) {
-          run_r += s.red[i];
-          run_k += k;
-        }
-        n_words += k;
-      }
-      for (uint32_t m = mine; m; m &= m - 1) {
-        const int wd = w_lo + __ffs(m) - 1;
-        s.nz[run_k] = wd;
-        s.nzpre[run_k] = run_r;
-        run_r += __popc(s.rbits[wd]);
-        ++run_k;
-      }
-      // the FU classes' counts drop by what this cycle issues (nothing
-      // reads cls_ready again before the next retire)
-      if (tid >= A && tid < A + kFu)
-        s.cls_ready[tid] -= min(s.cls_ready[tid], max(s.budget[tid - A], 0));
-      close(1);
+      if (PROFILE)
+        for (int sb = tid; sb < nsw; sb += kThreads)
+          words_ready += __popc(s.sbits[sb]);
+      close(1);     // the retire's drained buckets are empty for the pushes
 
-      // ---- FU issue by rank, memory candidates into slots ------------
-      for (int k = warp; k < n_words; k += kWarps) {
-        const int wd = s.nz[k];
-        const uint32_t bits = s.rbits[wd];
-        bool issued = false;
-        if ((bits >> lane) & 1u) {
-          const int i = wd * 32 + lane;
-          const int g = __ldg(p.gid_perm + i);
-          const int rank = s.nzpre[k] + __popc(bits & ((1u << lane) - 1u)) +
-                           1 - s.segpre[g];
-          if (g >= A) {
-            if (g < A + kFu && rank <= s.budget[g - A]) {
-              push_wheel(p, s, wheel, i, cycle + (__ldg(p.x_pos + i) >> 1),
-                         ctr);
-              issued = true;
-              if (RECORD) {
-                const int node = __ldg(p.perm + i);
-                events[node] = cycle;
-                events[npad + node] = P_COMPUTE;
-                events[3 * npad + node] = rank - 1;
-              }
-            }
-          } else if (rank - 1 < S) {
-            const int slot = g * S + rank - 1;
-            s.cand_pos[slot] = i;
-            s.cand_w[slot] = __ldg(p.word_pos + i);
-            s.cand_x[slot] = __ldg(p.x_pos + i);
-          }
-        }
-        const uint32_t gone = __ballot_sync(0xffffffffu, issued);
-        if (gone != 0 && lane == 0) {
-          const uint32_t left = bits & ~gone;
-          s.rbits[wd] = left;
-          if (left == 0) atomicAnd(&s.sbits[wd >> 5], ~(1u << (wd & 31)));
-        }
+      // ---- candidates: each array's select into its slots -------------
+      // (cls_ready holds each class's ready count as of the retire until
+      // the scan or the FU issue lowers it)
+      for (int a = warp; a < A; a += kWarps) {
+        const int k = min(s.cls_ready[a], s.kcap[a]);
+        if (k > 0)
+          select_class<RECORD, PROFILE, false>(p, s, a, k, cycle, lane,
+                                               wheel, events, ctr,
+                                               words_read);
       }
-      // unconfigured array with ready memory ops
-      if (tid < A) {
-        const int* d = p.desc + (size_t(lane_id) * A + tid) * kFields;
-        if (s.segpre[tid + 1] > s.segpre[tid] && d[F_CONFIGURED] <= 0)
-          atomicOr(&ctr[C_UNCONF], 1);
-      }
+      // an unconfigured array (the one kind of array that takes nothing)
+      // with ready memory ops
+      if (tid < A && s.cls_ready[tid] > 0 && s.kcap[tid] == 0)
+        atomicOr(&ctr[C_UNCONF], 1);
       close(2);
 
-      // ---- the deferral scan: one warp an array ----------------------
-      for (int a = warp; a < A; a += kWarps) {
-        const int n_ready = s.segpre[a + 1] - s.segpre[a];
+      // ---- the deferral scan, one warp an array, beside the FU issue ---
+      // (each reads its class's count before it writes it; class g goes
+      // to warp g % 16, so an FU class runs on a warp that scans no array
+      // while A <= 9)
+      for (int a = warp; a < A; a += kWarps)
         scan_array<RECORD, PROFILE>(p, s, lane_id, a, cycle,
-                                    min(n_ready, S), lane, delayed, events,
-                                    wheel, ctr, pops, rounds);
+                                    min(s.cls_ready[a], s.kcap[a]), lane,
+                                    delayed, events, wheel, ctr, pops, rounds);
+      for (int g = warp; g < A + kFu; g += kWarps) {
+        if (g < A) continue;
+        const int k = min(s.cls_ready[g], s.kcap[g]);
+        if (k > 0) {
+          select_class<RECORD, PROFILE, true>(p, s, g, k, cycle, lane,
+                                              wheel, events, ctr,
+                                              words_read);
+          if (lane == 0) s.cls_ready[g] -= k;
+        }
       }
       close(3);
     } else {
@@ -871,11 +974,20 @@ cycle_lanes_kernel(Params p) {
     mark(4);
   }
 
-  // each warp's scan pops and rounds (no thread reads red any more)
+  // each warp's scan pops and rounds, the bitmap words its selects read
+  // and the non-empty words its threads counted (no thread reads red any
+  // more)
   long long* red64 = reinterpret_cast<long long*>(s.red);
-  if (PROFILE && lane == 0) {
-    red64[warp] = pops;
-    red64[kWarps + warp] = rounds;
+  if (PROFILE) {
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      words_ready += __shfl_xor_sync(0xffffffffu, words_ready, o);
+    if (lane == 0) {
+      red64[warp] = pops;
+      red64[kWarps + warp] = rounds;
+      red64[2 * kWarps + warp] = words_read;
+      red64[3 * kWarps + warp] = words_ready;
+    }
   }
   __syncthreads();
   if (tid == 0) {
@@ -886,13 +998,13 @@ cycle_lanes_kernel(Params p) {
       long long* out = p.prof + size_t(lane_id) * kProf;
       for (int i = 0; i < kPhases; ++i) out[i] = ph[i];
       out[kPhases] = visited;
-      long long all_pops = 0, all_rounds = 0;
-      for (int i = 0; i < kWarps; ++i) {
-        all_pops += red64[i];
-        all_rounds += red64[kWarps + i];
-      }
-      out[kPhases + 1] = all_pops;
-      out[kPhases + 2] = all_rounds;
+      long long sum[4] = {0, 0, 0, 0};
+      for (int i = 0; i < kWarps; ++i)
+        for (int c = 0; c < 4; ++c) sum[c] += red64[c * kWarps + i];
+      out[kPhases + 1] = sum[0];
+      out[kPhases + 2] = sum[1];
+      p.reads[size_t(lane_id) * kReads] = sum[2];
+      p.reads[size_t(lane_id) * kReads + 1] = sum[3];
     }
   }
   for (int i = tid; i < A; i += kThreads) p.per_array[lane_id * A + i] =
@@ -929,7 +1041,8 @@ extern "C" {
 
 // Schedules L lanes over one trace (see cycle_lanes.py for the layouts).
 // All pointers are device pointers; events may be null when record is 0,
-// prof null for the default instantiation (not both record and prof).
+// prof and reads null for the default instantiation (both or neither;
+// not both record and prof).
 // Returns a cudaError_t: cudaErrorInvalidValue for sizes the kernel does
 // not take (more than 504 arrays, fewer than one lane, a wheel that is not
 // a power of two, more than 2**19 nodes, or a shared-memory layout beyond
@@ -937,28 +1050,31 @@ extern "C" {
 int cycle_lanes_launch(const int* desc, const int* fu_budgets,
                        const int* mem_latency, const int* ppb,
                        const int* max_cycles, const int* perm,
-                       const int* gid_perm, const int* x_pos,
+                       const int* gid_perm, const int* seg_start,
+                       const int* x_pos,
                        const int* word_pos, const int* succ_ptr,
                        const int* succ_pos,
                        const uint32_t* pend0, int* cycles, int* cnt,
                        int* per_array, int* err, int* maps, int* events,
-                       long long* prof, uint32_t* pend_ws,
+                       long long* prof, long long* reads,
+                       uint32_t* pend_ws,
                        uint8_t* delayed_ws, int* wheel_ws, int lanes, int A,
                        int npad, int n_real, int S, int U, int NB, int D,
                        int pend_log, int pend_words, int W,
                        int wheel_depth, int record, void* stream) {
   if (lanes < 1) return 0;
   Params p{desc, fu_budgets, mem_latency, ppb, max_cycles, perm, gid_perm,
-           x_pos, word_pos, succ_ptr, succ_pos, pend0, cycles, cnt,
-           per_array, err, maps, record ? events : nullptr, prof, pend_ws,
-           delayed_ws, wheel_ws, A, npad, n_real, S, U, NB, D, pend_log,
-           pend_words, W, wheel_depth};
+           seg_start, x_pos, word_pos, succ_ptr, succ_pos, pend0, cycles,
+           cnt, per_array, err, maps, record ? events : nullptr, prof,
+           reads, pend_ws, delayed_ws, wheel_ws, A, npad, n_real, S, U, NB,
+           D, pend_log, pend_words, W, wheel_depth};
   const bool pow2_w = W >= 1 && (W & (W - 1)) == 0;
   if (A < 1 || A + 8 > kThreads || n_real > npad || n_real < 0 ||
       n_real > (kThreads * 32) * 32 || S < 1 || U < 1 || NB < 1 || D < 1 ||
       pend_log < 0 || pend_log > 2 ||
       pend_words * (4 >> pend_log) < n_real || !pow2_w || wheel_depth < 1 ||
       (record && events == nullptr) || (record && prof != nullptr) ||
+      (prof == nullptr) != (reads == nullptr) ||
       smem_layout(p, nullptr, nullptr) > 232448)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

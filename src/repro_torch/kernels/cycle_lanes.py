@@ -499,7 +499,7 @@ def cycle_lanes_plain(desc, fu_budgets, mem_latency, ppb, max_cycles,
 def _launcher() -> tuple:
     lib = _build.load("cycle_lanes")
     fn = lib.cycle_lanes_launch
-    fn.argtypes = [ctypes.c_void_p] * 22 + [ctypes.c_int] * 13 + \
+    fn.argtypes = [ctypes.c_void_p] * 24 + [ctypes.c_int] * 13 + \
         [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     probe = lib.cycle_lanes_barrier_probe
@@ -521,7 +521,11 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles,
     are the kernel's view of the same trace by priority position, with
     ``pend_bits``, ``wheel_slots`` and ``wheel_depth`` its sizes
     (``core/sim/batched_cycle.py::_kernel_layout``); the plain version
-    reads the node-indexed inputs.
+    reads the node-indexed inputs.  Both read ``seg_start`` [A + 8], the
+    first position of each class's segment of ``perm`` (arrays, the 7
+    FU classes, the trace's pads), the last entry the end of the FU
+    classes: the kernel selects each class's first ready positions from
+    its own segment.
 
     CUDA tensors launch ``csrc/cycle_lanes.cu`` once for all lanes (one
     CTA a lane; the lanes' pending counts, first-deferral flags and
@@ -530,10 +534,13 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles,
     :func:`cycle_lanes_plain`.  ``profile=True`` (the card only, not
     with ``record``) launches the profiling instantiation and appends a
     [L, 8] int64 tensor: the SM clocks each lane spent in its retire,
-    rank, FU issue and candidates, deferral scan and clock phases, the
-    simulated cycles it visited, and the candidates its deferral scan
-    popped and the rounds it took to pop them (a round judges up to 32
-    pops at once, one a thread of the array's warp)."""
+    ready counts, candidates (the arrays' selects), deferral scan and FU
+    issue, and clock phases, the simulated cycles it visited, and the
+    candidates its deferral scan popped and the rounds it took to pop
+    them (a round judges up to 32 pops at once, one a thread of the
+    array's warp); then a [L, 2] int64 tensor summed over the visited
+    cycles: the ready-bitmap words the selects read and the bitmap's
+    non-empty words (what a walk of the whole bitmap would read)."""
     ins = (desc, fu_budgets, mem_latency, ppb, max_cycles, preds_pad, lat,
            is_load, word_idx, perm, gid_perm, seg_start, x_pos, word_pos,
            succ_ptr, succ_pos, pend0)
@@ -582,6 +589,8 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles,
               else None)
     prof = (torch.empty((L, 8), dtype=torch.int64, device=dev) if profile
             else None)
+    reads = (torch.empty((L, 2), dtype=torch.int64, device=dev) if profile
+             else None)
     pend_ws = torch.empty((L, pend_words), dtype=I32, device=dev)
     delayed_ws = torch.empty((L, max(n, 1)), dtype=torch.uint8, device=dev)
     wheel_ws = torch.empty((L, wheel_slots, wheel_depth), dtype=I32,
@@ -591,12 +600,14 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles,
         code = fn(desc.data_ptr(), fu_budgets.data_ptr(),
                   mem_latency.data_ptr(), ppb.data_ptr(),
                   max_cycles.data_ptr(), perm.data_ptr(),
-                  gid_perm.data_ptr(), x_pos.data_ptr(),
+                  gid_perm.data_ptr(), seg_start.data_ptr(),
+                  x_pos.data_ptr(),
                   word_pos.data_ptr(), succ_ptr.data_ptr(),
                   succ_pos.data_ptr(), pend0.data_ptr(), cycles.data_ptr(),
                   cnt.data_ptr(), per_array.data_ptr(), err.data_ptr(),
                   maps.data_ptr(), events.data_ptr() if record else None,
-                  prof.data_ptr() if profile else None, pend_ws.data_ptr(),
+                  prof.data_ptr() if profile else None,
+                  reads.data_ptr() if profile else None, pend_ws.data_ptr(),
                   delayed_ws.data_ptr(), wheel_ws.data_ptr(), L, A, NPAD, n,
                   max(scan_slots, 1), max(key_space, 1), max(bank_slots, 1),
                   D, {8: 0, 16: 1, 32: 2}[pend_bits], pend_words,
@@ -607,7 +618,7 @@ def cycle_lanes(desc, fu_budgets, mem_latency, ppb, max_cycles,
     out = (cycles, cnt, per_array, err, maps)
     if record:
         out = out + (events,)
-    return out + (prof,) if profile else out
+    return out + (prof, reads) if profile else out
 
 
 cycle_lanes.launches = 0

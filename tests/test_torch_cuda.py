@@ -786,6 +786,102 @@ def test_cycle_lanes_scans_wider_than_a_round(cuda, name):
         assert int(pops[0]) > 8 * int(rounds[0])
 
 
+def _select_trace(name: str):
+    """A trace for the select of each class's first ready positions.
+
+    ``skip``: 2100 IADDs chained behind a load (the class's highest
+    priorities, none ready until the load retires) before 1200 IADDs
+    ready at once, so the class's first ready position lies past its
+    first 2048 positions (a summary word with nothing ready); 45 IMULs
+    ready at once, the IADD/IMUL boundary inside a bitmap word; an array
+    that is never accessed (an empty segment).  ``arrays``: 700 loads of
+    one array ready at once (more than the scan slots), an empty array
+    between two others, short load chains and stores in a third, FADD
+    joins and a few FDIVs (a class inside one bitmap word)."""
+    from repro_torch.core.sim import TraceBuilder
+    from repro_torch.core.sim.trace import FADD, FDIV, IADD, IMUL
+
+    tb = TraceBuilder(f"select_{name}")
+    if name == "skip":
+        a = tb.declare_array("a", 4)
+        tb.declare_array("unused", 4)
+        prev = tb.load(a, 0)
+        for _ in range(2100):
+            prev = tb.op(IADD, prev)
+        for _ in range(1200):
+            tb.op(IADD)
+        for _ in range(45):
+            tb.op(IMUL)
+        tb.store(a, 1, (prev,))
+        return tb.build()
+    a = tb.declare_array("a", 4)
+    tb.declare_array("unused", 4)
+    c = tb.declare_array("c", 8)
+    loads = [tb.load(a, (7 * i) % 61) for i in range(700)]
+    prev, chains = (), []
+    for i in range(75):
+        x = tb.load(c, (5 * i) % 59, prev)
+        chains.append(x)
+        prev = (x,) if i % 4 else ()
+    joins = [tb.op(FADD, loads[i], loads[i + 1]) for i in range(0, 699, 2)]
+    for i in range(5):
+        tb.store(c, i, (tb.op(FDIV, joins[i], chains[-1 - i]),))
+    return tb.build()
+
+
+def _select_configs(pt):
+    """Designs over every array of ``pt``, with FU budgets below the
+    ready counts (IADD 1, IMUL 2) and above them (IADD 4096)."""
+    from repro_torch.core.amm.spec import AMMSpec
+    from repro_torch.core.sim import ScheduleConfig
+
+    below = {"iadd": 1, "imul": 2, "fadd": 1, "fdiv": 1}
+    above = {"iadd": 4096, "imul": 64, "fadd": 512, "fdiv": 8}
+    return [ScheduleConfig(mem={aid: AMMSpec(kind, rd, wr, 64, n_banks=nb)
+                                for aid in pt.trace.array_names},
+                           fu_counts=fu, mem_latency=lat)
+            for kind, rd, wr, nb, fu, lat in (
+                ("banked", 2, 2, 4, below, 2), ("hb_ntx", 4, 2, 1, above, 3),
+                ("remap", 2, 2, 1, below, 1), ("lvt", 4, 2, 1, above, 0),
+                ("ideal", 8, 4, 1, below, 5),
+                ("multipump", 2, 2, 1, above, 2))]
+
+
+@pytest.mark.parametrize("record", [False, True])
+@pytest.mark.parametrize("name", ["skip", "arrays"])
+def test_cycle_lanes_select_matches_plain(cuda, name, record):
+    """The select of each class's first ready positions from its own
+    segment: on traces where a class boundary falls inside a bitmap
+    word, a class's first ready position lies more than 1024 positions
+    past its segment's start (the summary skip), FU budgets sit above
+    and below the ready counts, an array has more ready positions than
+    the scan slots and an array's segment is empty, the raw outputs
+    (cycles, counters, per-array accesses, maps, and with ``record`` the
+    event log's four columns) equal the plain version's."""
+    from repro_torch.core.sim import prepare_trace
+    from repro_torch.core.sim.batched_cycle import _lane_inputs
+
+    pt = prepare_trace(_select_trace(name))
+    dv = pt.device_views()
+    seg = dv.seg_start
+    A = dv.a_pad
+    assert any(s % 32 for s in seg[1:-1] if 0 < s < dv.n_real)
+    assert any(seg[g] == seg[g + 1] for g in range(A))
+    cfgs = _select_configs(pt)
+    sc, _ = _lane_inputs(pt, cfgs)
+    if name == "skip":
+        iadd = A + 3                                  # FU_ORDER's "iadd"
+        assert seg[iadd + 1] - seg[iadd] == 3300
+        # the chain (nodes 1-2100) leads the class's segment
+        assert sorted(dv.perm[seg[iadd]:seg[iadd] + 2100]) == list(
+            range(1, 2101))
+    else:
+        assert 700 > sc.scan_slots
+    got = _lane_call(pt, cfgs, cuda, record=record)
+    torch.cuda.synchronize()
+    _same_raw(got, _lane_call(pt, cfgs, "cpu", record=record))
+
+
 @pytest.mark.parametrize("rows", ["spec", "past_the_tree"])
 def test_cycle_lanes_matches_plain_at_odd_depths(cuda, rows):
     """NTX lanes at depths that are not powers of two (hb_ntx 4R2W,
@@ -845,7 +941,10 @@ def test_cycle_lanes_profile_and_barrier_probe(cuda):
 def test_profile_lanes_reads_the_slowest_lane(cuda):
     """``batched_cycle.profile_lanes`` names a lane of the launch, its
     cycles as the schedule has them, the cycles it visited and its SM
-    clocks in each phase, with shares that sum to one."""
+    clocks in each phase, with shares that sum to one; the bitmap words
+    its select read, at most the non-empty words plus one a class a
+    visited cycle (a word that two classes share is read by both); and
+    the five slowest lanes, slowest first, the first of them its own."""
     from _torch_sched_util import golden_configs
     from repro_torch.core.sim.batched_cycle import (LANE_PHASES,
                                                     profile_lanes,
@@ -863,6 +962,15 @@ def test_profile_lanes_reads_the_slowest_lane(cuda):
     assert got["clocks_per_visit"] == pytest.approx(clocks / got["visited"])
     assert sum(got["shares"]) == pytest.approx(1.0)
     assert got["scan_pops"] >= got["scan_rounds"] >= 1
+    classes = pt.device_views().a_pad + 7
+    assert 0 < got["select_words"] <= (got["ready_words"]
+                                       + classes * got["visited"])
+    slowest = got["slowest"]
+    assert len(slowest) == min(5, len(cfgs))
+    assert slowest[0] == {"lane": got["lane"], "clocks": clocks}
+    assert len({r["lane"] for r in slowest}) == len(slowest)
+    assert [r["clocks"] for r in slowest] == sorted(
+        (r["clocks"] for r in slowest), reverse=True)
 
 
 def test_cycle_lanes_rejects_what_it_does_not_take(cuda):
